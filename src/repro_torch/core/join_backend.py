@@ -1,0 +1,377 @@
+"""Batched join backends + the sweep dispatcher.
+
+A *bucket sweep* is the paper's per-task TID join restructured at bucket
+granularity: one (k-1)-prefix bitmap against the bucket's E extension
+bitmaps, producing E support counts in one call. Two pieces carry it:
+
+  ``BitmapArena`` (repro_torch.core.tidlist)  every bitmap lives in one
+      refcounted row store with integer handles; its device mirror is
+      synced incrementally, so repeated sweeps cost ~one initial upload.
+  ``SweepDispatcher``  workers enqueue handle-based ``SweepRequest``s
+      and block on a future; one dispatcher thread coalesces pending
+      requests into a padded batch and launches one kernel per
+      representation for all of them. Only the dispatcher thread touches
+      the device.
+
+Backends implement the same batched API:
+
+  numpy   per-request ``tidlist.support_counts`` over zero-copy arena
+          row views — GIL-released ufunc passes on the host. It runs
+          only when asked for by name.
+  torch   the kernel backend: dense prefixes go to ``bitmap_join_many``
+          and sparse (tid-list/diffset) prefixes to
+          ``gather_intersect_many``, gathering extension rows from the
+          arena's mirror. On a CUDA arena the wrappers launch the CUDA
+          kernels; on a CPU arena they run their plain versions.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from concurrent.futures import Future
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import tidlist
+from repro_torch.core.tidlist import BitmapArena, pow2
+from repro_torch.kernels.bitmap_join.ops import bitmap_join_many
+from repro_torch.kernels.gather_intersect.ops import gather_intersect_many
+from repro_torch.obs import schema as obs_schema
+
+# Dispatcher defaults: how many requests one kernel launch may carry,
+# and how long (µs) the dispatcher waits for stragglers to coalesce
+# before flushing a partial batch.
+MAX_BATCH = 32
+FLUSH_US = 200.0
+
+
+@dataclass
+class SweepRequest:
+    """One bucket sweep, by handle: counts[i] = |row(prefix) ∧ row(ext_i)|.
+
+    When ``prefix_handle`` is a SPARSE arena row (tid-list or diffset),
+    the backend runs the gather-intersect path and the counts are
+    ``|payload ∩ ext_i|`` over the raw sparse payload — for a tid-list
+    that IS the support, for a diffset it is the subtrahend. One flush
+    may mix representations; the backend partitions per launch."""
+    prefix_handle: int
+    ext_handles: Tuple[int, ...]
+    future: Future = field(default_factory=Future)
+
+    def is_sparse(self, arena: BitmapArena) -> bool:
+        """True when the prefix row is a tid-list/diffset."""
+        return arena.rep_of(self.prefix_handle) != tidlist.REP_BITMAP
+
+
+class JoinBackend:
+    """Batched executor: ``sweep_many(arena, requests)`` returns one
+    int64 counts array per request (ragged — each sized to the
+    request's own extension count)."""
+
+    name: str = "base"
+
+    def sweep_many(self, arena: BitmapArena,
+                   requests: Sequence[SweepRequest]) -> List[np.ndarray]:
+        raise NotImplementedError
+
+    def __repr__(self) -> str:
+        return f"<JoinBackend {self.name}>"
+
+
+class NumpyBackend(JoinBackend):
+    """Zero-copy arena row views into the fused AND+popcount ufunc pass,
+    batched: a flush's dense requests are binned by padded E and each
+    bin executes as a few wide numpy passes (index gather → AND → fused
+    popcount); sparse requests gather one word per tid."""
+
+    name = "numpy"
+    # bound on a bin pass's [B, E, W] AND temporary (slices B)
+    PASS_BYTES = 4 << 20
+
+    def sweep_many(self, arena, requests):
+        totals: List[np.ndarray] = [None] * len(requests)
+        dense: List[int] = []
+        for i, r in enumerate(requests):
+            if r.is_sparse(arena):
+                totals[i] = self._sweep_sparse(arena, r)
+            else:
+                dense.append(i)
+        rows = arena.rows_view()
+        if len(dense) == 1:
+            i = dense[0]
+            totals[i] = self._sweep_one(rows, requests[i])
+        elif dense:
+            # bin by padded E so one fancy-index gather serves the bin
+            bins: Dict[int, List[int]] = {}
+            for i in dense:
+                bins.setdefault(pow2(len(requests[i].ext_handles)),
+                                []).append(i)
+            for ep, bi in sorted(bins.items()):
+                counts = self._sweep_bin(rows, [requests[i] for i in bi],
+                                         ep)
+                for j, i in enumerate(bi):
+                    totals[i] = counts[j, :len(requests[i].ext_handles)]
+        return totals
+
+    @staticmethod
+    def _sweep_sparse(arena, r):
+        """Sparse-prefix sweep: for each extension, gather the ext word
+        at every prefix tid and test one bit — an [E, S] word block, no
+        [E, W] dense gather copy."""
+        out = np.zeros(len(r.ext_handles), np.int64)
+        tids = arena.tids_of(r.prefix_handle)
+        if not len(tids) or not len(r.ext_handles) or not arena.n_words:
+            return out
+        t = tids.astype(np.int64)
+        words = arena.rows_view()[np.ix_(list(r.ext_handles), t >> 5)]
+        out += ((words >> (t & 31).astype(np.uint32)[None, :])
+                & np.uint32(1)).sum(axis=1, dtype=np.int64)
+        return out
+
+    @staticmethod
+    def _sweep_one(rows, r):
+        return tidlist.support_counts(rows[r.prefix_handle],
+                                      rows[list(r.ext_handles)])
+
+    def _sweep_bin(self, rows, reqs, ep):
+        """[B, E]-batched sweep: extension pads gather row 0 and are
+        sliced off by the caller."""
+        b = len(reqs)
+        w = rows.shape[1]
+        eidx = np.zeros((b, ep), np.int64)
+        for i, r in enumerate(reqs):
+            eidx[i, :len(r.ext_handles)] = r.ext_handles
+        prefix = rows[[r.prefix_handle for r in reqs]]
+        out = np.empty((b, ep), np.int64)
+        step = max(1, self.PASS_BYTES // max(ep * w * 4, 1))
+        for lo in range(0, b, step):
+            hi = min(lo + step, b)
+            ex = rows[eidx[lo:hi].ravel()].reshape(hi - lo, ep, w)
+            out[lo:hi] = tidlist.popcount32(
+                ex & prefix[lo:hi, None, :]).sum(axis=2)
+        return out
+
+
+# E- and S-padding floor of the kernel backend's batches: the reference
+# engine's padding, kept so a batch (and the tid payload billed to
+# h2d_bytes) has the same shape in both.
+E_PAD_FLOOR = 64
+
+
+class TorchBackend(JoinBackend):
+    """The kernel backend: pad the ragged batch to [B', E', W'] (powers
+    of two, E' and S' at least ``E_PAD_FLOOR``, W' the arena mirror's
+    width), gather the extension rows from the arena's device mirror,
+    and launch ``bitmap_join_many`` for the dense requests and
+    ``gather_intersect_many`` for the sparse ones — at most two launches
+    per flush. Each request's counts are sliced back out of its row."""
+
+    name = "torch"
+
+    def sweep_many(self, arena, requests):
+        totals = [np.zeros(len(r.ext_handles), np.int64) for r in requests]
+        if not arena.n_words:
+            return totals
+        dense = [i for i, r in enumerate(requests) if not r.is_sparse(arena)]
+        sparse = [i for i, r in enumerate(requests) if r.is_sparse(arena)]
+        for part, fn in ((dense, self._sweep_dense),
+                         (sparse, self._sweep_sparse)):
+            if not part:
+                continue
+            counts = fn(arena, [requests[i] for i in part])
+            for j, i in enumerate(part):
+                totals[i] += counts[j, :len(requests[i].ext_handles)]
+        return totals
+
+    @staticmethod
+    def _gather_exts(dev, requests, bp):
+        """[bp, E', W'] extension rows gathered from the mirror ``dev``
+        (pad lanes and pad requests gather row 0; their counts are
+        never read)."""
+        ep = pow2(max(len(r.ext_handles) for r in requests), lo=E_PAD_FLOOR)
+        eidx = np.zeros((bp, ep), np.int64)
+        for i, r in enumerate(requests):
+            eidx[i, :len(r.ext_handles)] = r.ext_handles
+        idx = torch.from_numpy(eidx.reshape(-1)).to(dev.device)
+        return dev.index_select(0, idx).view(bp, ep, dev.shape[1])
+
+    def _sweep_dense(self, arena, requests):
+        bp = pow2(len(requests))
+        pidx = np.zeros(bp, np.int64)
+        pidx[:len(requests)] = [r.prefix_handle for r in requests]
+        dev = arena.device_rows()
+        exts = self._gather_exts(dev, requests, bp)
+        prefixes = dev.index_select(0, torch.from_numpy(pidx).to(dev.device))
+        return bitmap_join_many(prefixes, exts).cpu().numpy()
+
+    def _sweep_sparse(self, arena, requests):
+        """Sparse sub-batch: prefixes are tid/diffset payloads, shipped
+        host→device per launch (billed at the padded array's nbytes —
+        sparse rows have no mirror payload), padded to a pow2 S with the
+        -1 sentinel; extension rows gather from the mirror like the
+        dense path."""
+        bp = pow2(len(requests))
+        payloads = [arena.tids_of(r.prefix_handle) for r in requests]
+        sp = pow2(max(1, max(len(t) for t in payloads)), lo=E_PAD_FLOOR)
+        tmat = np.full((bp, sp), -1, np.int32)
+        for i, t in enumerate(payloads):
+            tmat[i, :len(t)] = t
+        dev = arena.device_rows()
+        exts = self._gather_exts(dev, requests, bp)
+        arena.count_h2d(tmat.nbytes)
+        tids = torch.from_numpy(tmat).to(dev.device)
+        return gather_intersect_many(tids, exts).cpu().numpy()
+
+
+_REGISTRY: Dict[str, Callable[[], JoinBackend]] = {
+    "numpy": NumpyBackend,
+    "torch": TorchBackend,
+}
+
+
+def resolve_backend(spec: str = "auto") -> JoinBackend:
+    """"auto" is the kernel backend, which runs on whatever device the
+    arena lives on; "numpy" runs only when named."""
+    if spec == "auto":
+        spec = "torch"
+    if spec not in _REGISTRY:
+        raise ValueError(
+            f"unknown join backend {spec!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[spec]()
+
+
+class SweepDispatcher:
+    """Coalesces many workers' sweep requests into batched launches.
+
+    Workers call :meth:`sweep` (or :meth:`submit` + ``future.result()``)
+    and block; the dedicated dispatcher thread gathers pending requests
+    and flushes a batch when either
+
+      * ``min(max_batch, n_clients)`` requests are pending — since
+        ``sweep`` blocks its caller, pending requests count currently
+        blocked clients, so once every client is waiting no further
+        request can arrive and waiting longer is pure latency; or
+      * ``flush_us`` elapsed since the flush started forming — bounding
+        the latency a lone straggler pays when other workers are busy
+        with non-sweep work.
+
+    Errors from the backend resolve every future in the flight batch,
+    so task bodies re-raise through the scheduler's normal task-error
+    machinery. ``batch_occupancy`` (requests per flush) shows whether
+    batching actually happened.
+    """
+
+    def __init__(self, arena: BitmapArena, backend: JoinBackend,
+                 n_clients: int, max_batch: int = MAX_BATCH,
+                 flush_us: float = FLUSH_US, shard: int = 0,
+                 tracer=None, trace_pid: int = 0):
+        self.arena = arena
+        self.backend = backend
+        # observability: None = off (the tracer is a later slice; the
+        # guards stay so it slots in)
+        self.tracer = tracer
+        self.trace_pid = trace_pid
+        self.n_clients = max(1, n_clients)
+        self.max_batch = max(1, max_batch)
+        self.flush_s = max(0.0, flush_us) * 1e-6
+        self.shard = shard
+        self.sweep_s = 0.0            # backend busy time (s)
+        self._pending: List[SweepRequest] = []
+        self._cv = threading.Condition()
+        self._stop = False
+        self.flushes = 0
+        self.requests = 0
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name=f"sweep-dispatcher-{shard}")
+        self._thread.start()
+
+    # ------------------------------------------------------------ client --
+    def submit(self, prefix_handle: int,
+               ext_handles: Sequence[int]) -> Future:
+        req = SweepRequest(int(prefix_handle), tuple(ext_handles))
+        with self._cv:
+            if self._stop:
+                raise RuntimeError("dispatcher is stopped")
+            self._pending.append(req)
+            self._cv.notify_all()
+        return req.future
+
+    def sweep(self, prefix_handle: int,
+              ext_handles: Sequence[int]) -> np.ndarray:
+        """Blocking convenience: enqueue and wait for the counts."""
+        tr = self.tracer
+        if tr is None:
+            return self.submit(prefix_handle, ext_handles).result()
+        t0 = tr.now()
+        counts = self.submit(prefix_handle, ext_handles).result()
+        tr.span("sweep", t0, cat="sweep", args={"ext": len(ext_handles)})
+        return counts
+
+    @property
+    def batch_occupancy(self) -> float:
+        return self.requests / self.flushes if self.flushes else 0.0
+
+    def stats(self) -> Dict[str, float]:
+        """This dispatcher's gauges on the ``repro_torch.obs.schema``
+        device schema. Every flush here is a queue flush."""
+        return obs_schema.device_stats(
+            {"device": self.shard, "flushes": self.flushes,
+             "sweep_requests": self.requests,
+             "queue_flushes": self.flushes,
+             "queue_requests": self.requests,
+             "sweep_s": self.sweep_s})
+
+    # -------------------------------------------------------------- loop --
+    def _loop(self):
+        tr = self.tracer
+        if tr is not None:
+            tr.set_lane(f"dispatcher-{self.shard}",
+                        sort_index=1000 + self.shard, pid=self.trace_pid)
+        full = min(self.max_batch, self.n_clients)
+        while True:
+            with self._cv:
+                while not self._pending and not self._stop:
+                    self._cv.wait()
+                if not self._pending and self._stop:
+                    return
+                if len(self._pending) < full and not self._stop:
+                    deadline = time.monotonic() + self.flush_s
+                    while len(self._pending) < full and not self._stop:
+                        left = deadline - time.monotonic()
+                        if left <= 0:
+                            break
+                        self._cv.wait(timeout=left)
+                batch = self._pending[:self.max_batch]
+                del self._pending[:self.max_batch]
+                self.flushes += 1
+                self.requests += len(batch)
+            try:
+                t0 = time.perf_counter()
+                results = self.backend.sweep_many(self.arena, batch)
+                with self._cv:
+                    self.sweep_s += time.perf_counter() - t0
+                if tr is not None:
+                    sparse = sum(1 for r in batch if r.is_sparse(self.arena))
+                    tr.span("flush", t0, cat="flush",
+                            args={"requests": len(batch), "sparse": sparse,
+                                  "dense": len(batch) - sparse})
+            except BaseException as e:  # noqa: BLE001 - resolve futures:
+                for r in batch:         # a swallowed error would deadlock
+                    r.future.set_exception(e)   # every blocked worker
+            else:
+                for r, counts in zip(batch, results):
+                    r.future.set_result(counts)
+
+    def stop(self):
+        """Drain pending requests, then join the dispatcher thread."""
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        self._thread.join(timeout=10)
+        with self._cv:                  # only non-empty if the thread died
+            leftover, self._pending = self._pending, []
+        for r in leftover:
+            r.future.set_exception(RuntimeError("dispatcher stopped"))

@@ -1,0 +1,32 @@
+"""Plain PyTorch version of the ``bitmap_join_many`` kernel.
+
+Words are int32 tensors holding the uint32 bit patterns. This PyTorch
+build has no popcount op, and ``>>`` on int32 is arithmetic (it copies
+bit 31 down), so :func:`popcount32` masks after every shift and counts
+the two 16-bit halves separately: every intermediate stays in
+[0, 0xFFFF], where no int32 arithmetic can overflow.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _popcount16(v: torch.Tensor) -> torch.Tensor:
+    """Bit count of int32 values in [0, 0xFFFF] (SWAR)."""
+    v = v - ((v >> 1) & 0x5555)
+    v = (v & 0x3333) + ((v >> 2) & 0x3333)
+    v = (v + (v >> 4)) & 0x0F0F
+    return (v + (v >> 8)) & 0x1F
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Per-element bit count of int32 words read as uint32."""
+    return _popcount16(x & 0xFFFF) + _popcount16((x >> 16) & 0xFFFF)
+
+
+def bitmap_join_many_ref(prefixes: torch.Tensor, exts: torch.Tensor
+                         ) -> torch.Tensor:
+    """prefixes [B, W] int32, exts [B, E, W] int32 -> counts [B, E] int32:
+    ``counts[b, e] = Σ_w popcount(prefixes[b, w] & exts[b, e, w])``."""
+    joined = exts & prefixes[:, None, :]
+    return popcount32(joined).sum(dim=2, dtype=torch.int32)

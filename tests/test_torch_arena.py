@@ -1,0 +1,149 @@
+"""The port's arena against the reference's: the carry-across of bitmap
+words between the packages, row lifecycle, sparse rows, and h2d billing
+of the device mirror (here on the CPU)."""
+import numpy as np
+import pytest
+import torch
+from _hyp import given, settings, st
+
+from repro.core import tidlist as rtl
+from repro_torch.core import tidlist as ttl
+from repro_torch.core.tidlist import (BitmapArena, from_device_words,
+                                      to_device_words)
+
+RNG = np.random.default_rng(3)
+
+
+def words(shape, rng=RNG):
+    return rng.integers(0, 2 ** 32, size=shape, dtype=np.uint32)
+
+
+# -------------------------------------------------------- carry-across
+def test_device_words_round_trip_bit_for_bit():
+    x = np.concatenate([words((5, 7)),
+                        np.array([[0x80000000, 0xFFFFFFFF, 0, 1,
+                                   0x7FFFFFFF, 0x80000001, 2]],
+                                 np.uint32)])
+    t = to_device_words(x, "cpu")
+    assert t.dtype == torch.int32 and t.shape == x.shape
+    np.testing.assert_array_equal(t.numpy().view(np.uint32), x)
+    back = from_device_words(t)
+    assert back.dtype == np.uint32
+    np.testing.assert_array_equal(back, x)
+    with pytest.raises(TypeError):
+        from_device_words(t.long())
+
+
+@settings(max_examples=20, deadline=None, database=None)
+@given(st.lists(st.integers(0, 2 ** 32 - 1), min_size=0, max_size=50))
+def test_property_device_words_round_trip(xs):
+    x = np.array(xs, np.uint32)
+    np.testing.assert_array_equal(
+        from_device_words(to_device_words(x, "cpu")), x)
+
+
+def test_reference_bitmaps_carry_into_port_mirror():
+    """The reference packs the database; the port's mirror holds the
+    same words bit for bit."""
+    db = [sorted(RNG.choice(9, size=RNG.integers(1, 6),
+                            replace=False).tolist()) for _ in range(300)]
+    bm = rtl.pack_database(db, 9)
+    np.testing.assert_array_equal(ttl.pack_database(db, 9), bm)
+    arena = BitmapArena.from_bitmaps(bm, device="cpu")
+    mirror = arena.device_rows()
+    assert mirror.shape == (9, arena.mirror_words)
+    np.testing.assert_array_equal(
+        from_device_words(mirror[:, :bm.shape[1]]), bm)
+    assert not mirror[:, bm.shape[1]:].any()
+
+
+def test_host_helpers_identical_to_reference():
+    x = words((4, 13))
+    np.testing.assert_array_equal(ttl.popcount32(x), rtl.popcount32(x))
+    np.testing.assert_array_equal(ttl.support_counts(x[0], x[1:]),
+                                  rtl.support_counts(x[0], x[1:]))
+    assert ttl.support_of(x[:3]) == rtl.support_of(x[:3])
+    tids = ttl.bitmap_to_tids(x[0])
+    np.testing.assert_array_equal(tids, rtl.bitmap_to_tids(x[0]))
+    np.testing.assert_array_equal(ttl.tids_to_bitmap(tids, 13), x[0])
+    assert ttl.gather_count(tids, x[1]) == rtl.gather_count(tids, x[1])
+    sub = ttl.bitmap_to_tids(x[0] & x[1])
+    np.testing.assert_array_equal(ttl.sorted_difference(tids, sub),
+                                  rtl.sorted_difference(tids, sub))
+
+
+# ------------------------------------------------------------ lifecycle
+def test_push_release_recycles_slots_and_pins_base():
+    arena = BitmapArena.from_bitmaps(words((4, 3)), device="cpu")
+    arena.release(0)                       # pinned: no-op
+    assert arena.refcount(0) == 1
+    h = arena.push(words(3))
+    assert h == 4 and arena.live_extra == 1
+    arena.retain(h)
+    arena.release(h)
+    assert arena.refcount(h) == 1
+    arena.release(h)
+    assert arena.live_extra == 0
+    assert arena.push(words(3)) == h       # slot recycled
+    assert arena.peak_live_extra == 1
+
+
+def test_sparse_rows_densify_and_cascade_like_reference():
+    rows = words((6, 4))
+    arenas = (BitmapArena.from_bitmaps(rows, device="cpu"),
+              rtl.BitmapArena.from_bitmaps(rows, backing="numpy"))
+    pt = ttl.bitmap_to_tids(rows[0] & rows[1])
+    sub = ttl.bitmap_to_tids(rows[0] & rows[1] & rows[2])
+    out = []
+    for a in arenas:
+        ht = a.push_tids(pt)
+        hd = a.push_diffset(ttl.sorted_difference(pt, sub), anchor=ht,
+                            support=len(sub))
+        hs = a.sparsify_push(rows[3] & rows[4])
+        out.append((a.rep_of(ht), a.rep_of(hd), a.rep_of(hs),
+                    a.densify(ht).tolist(), a.densify(hd).tolist(),
+                    a.sparse_support(hd), a.refcount(ht)))
+        a.release(ht)
+        a.release(hd)                      # cascades to ht
+        out.append((a.live_extra, a.sparse_live, a.sparse_bytes_live,
+                    a.peak_sparse_bytes, a.densify_ops, a.sparsify_ops,
+                    a.sparsify_bytes))
+    assert out[0] == out[2] and out[1] == out[3]
+    assert out[0][4] == (rows[0] & rows[1] & rows[2]).tolist()
+
+
+# ----------------------------------------------------------- h2d billing
+def test_mirror_h2d_billing_matches_reference():
+    """The same push/release/sparse sequence with mirror syncs between
+    steps bills the same h2d bytes as the reference's device mirror, and
+    the mirror holds every live dense row (sparse slots zero)."""
+    base = words((10, 9))
+    port = BitmapArena.from_bitmaps(base, device="cpu")
+    ref = rtl.BitmapArena.from_bitmaps(base, backing="auto")
+    handles = []
+    rng = np.random.default_rng(0)
+    for step in range(40):
+        op = rng.integers(0, 4)
+        if op == 0 or not handles:
+            row = words(9, rng)
+            handles.append((port.push(row), ref.push(row)))
+        elif op == 1:
+            tids = np.sort(rng.choice(32 * 9, size=5, replace=False))
+            handles.append((port.push_tids(tids), ref.push_tids(tids)))
+        elif op == 2:
+            hp, hr = handles.pop(int(rng.integers(len(handles))))
+            port.release(hp)
+            ref.release(hr)
+        if step % 3 == 0:
+            mirror = port.device_rows()
+            ref.device_rows(0)
+            assert port.h2d_bytes == ref.h2d_bytes, step
+            for hp, _ in handles:
+                if port.rep_of(hp) == ttl.REP_BITMAP:
+                    np.testing.assert_array_equal(
+                        from_device_words(mirror[hp, :9]), port.row(hp))
+                else:
+                    assert not mirror[hp].any()
+    assert port.h2d_bytes > base.nbytes
+    port.count_h2d(128)
+    assert port.h2d_bytes == ref.h2d_bytes + 128

@@ -1,0 +1,187 @@
+"""The port's join backends and sweep dispatcher: numpy and kernel
+backends against naive counts and against the reference's backends
+(counts and h2d billing), and the dispatcher's coalescing, timeout and
+error semantics."""
+import threading
+
+import numpy as np
+import pytest
+
+from repro.core import join_backend as rjb
+from repro.core import tidlist as rtl
+from repro_torch.core import join_backend as jb
+from repro_torch.core import tidlist
+from repro_torch.core.tidlist import BitmapArena
+
+RNG = np.random.default_rng(7)
+
+
+def rand_rows(n_rows, w, rng=RNG):
+    return rng.integers(0, 2 ** 32, size=(n_rows, w), dtype=np.uint32)
+
+
+def naive_counts(prefix, exts):
+    return np.array([sum(bin(int(prefix[w]) & int(exts[i, w])).count("1")
+                         for w in range(len(prefix)))
+                     for i in range(exts.shape[0])], dtype=np.int64)
+
+
+def mixed_arena(rows, mod_arena, **kw):
+    """Arena over ``rows`` plus a tid-list and a diffset row; returns the
+    arena and the (dense prefix, sparse prefix) bitmaps each stands for."""
+    arena = mod_arena.from_bitmaps(rows, **kw)
+    pt = tidlist.bitmap_to_tids(rows[0] & rows[1])
+    ht = arena.push_tids(pt)
+    sub = tidlist.bitmap_to_tids(rows[0] & rows[1] & rows[2])
+    hd = arena.push_diffset(tidlist.sorted_difference(pt, sub), anchor=ht,
+                            support=len(sub))
+    return arena, ht, hd
+
+
+SPECS = [(0, range(1, 12)),          # wide
+         (3, [7]),                   # single extension
+         (11, [0, 2, 4, 6, 8, 10]),  # strided
+         (5, range(6, 9))]           # narrow
+
+
+# ------------------------------------------------------------- backends
+@pytest.mark.parametrize("name", ["numpy", "torch"])
+def test_backend_matches_naive_on_ragged_mixed_batch(name):
+    rows = rand_rows(12, 40)
+    arena, ht, hd = mixed_arena(rows, BitmapArena, device="cpu")
+    specs = SPECS + [(ht, (3, 4, 5)), (hd, (3, 4, 5))]
+    reqs = [jb.SweepRequest(p, tuple(e)) for p, e in specs]
+    got = jb.resolve_backend(name).sweep_many(arena, reqs)
+    for (p, e), c in zip(SPECS, got):
+        np.testing.assert_array_equal(c, naive_counts(rows[p],
+                                                      rows[list(e)]))
+        assert c.dtype == np.int64
+    both = naive_counts(rows[0] & rows[1], rows[3:6])
+    diff = naive_counts(rows[0] & rows[1] & ~rows[2], rows[3:6])
+    np.testing.assert_array_equal(got[-2], both)
+    np.testing.assert_array_equal(got[-1], diff)
+
+
+def test_torch_backend_matches_reference_pallas_backend_and_h2d():
+    """Same arena contents, same flushes: the kernel backend's counts
+    and h2d bill equal the reference pallas-interpret backend's."""
+    rows = rand_rows(12, 40)
+    port, pht, phd = mixed_arena(rows, BitmapArena, device="cpu")
+    ref, rht, rhd = mixed_arena(rows, rtl.BitmapArena, backing="auto")
+    assert (pht, phd) == (rht, rhd)
+    for flush in (SPECS, [(pht, (1, 2)), (0, (5,)), (phd, (3, 9, 10))]):
+        a = jb.TorchBackend().sweep_many(
+            port, [jb.SweepRequest(p, tuple(e)) for p, e in flush])
+        b = rjb.get_backend("pallas-interpret").sweep_many(
+            ref, [rjb.SweepRequest(p, tuple(e)) for p, e in flush])
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+        assert port.h2d_bytes == ref.h2d_bytes
+    assert port.h2d_bytes > 0
+
+
+def test_numpy_backend_matches_reference_numpy_backend():
+    rows = rand_rows(20, 17)
+    port = BitmapArena.from_bitmaps(rows, device="cpu")
+    ref = rtl.BitmapArena.from_bitmaps(rows, backing="numpy")
+    flush = [(p, tuple(RNG.choice(20, size=RNG.integers(1, 9),
+                                  replace=False).tolist()))
+             for p in range(20)]
+    a = jb.NumpyBackend().sweep_many(
+        port, [jb.SweepRequest(p, e) for p, e in flush])
+    b = rjb.NumpyBackend().sweep_many(
+        ref, [rjb.SweepRequest(p, e) for p, e in flush])
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    assert port.h2d_bytes == ref.h2d_bytes == 0
+
+
+def test_resolve_backend():
+    assert jb.resolve_backend("auto").name == "torch"
+    assert jb.resolve_backend("numpy").name == "numpy"
+    with pytest.raises(ValueError, match="unknown join backend"):
+        jb.resolve_backend("pallas-jit")
+
+
+# ----------------------------------------------------------- dispatcher
+def test_dispatcher_coalesces_full_batch():
+    rows = rand_rows(9, 6)
+    arena = BitmapArena.from_bitmaps(rows, device="cpu")
+    disp = jb.SweepDispatcher(arena, jb.TorchBackend(), n_clients=4,
+                              flush_us=500_000)
+    try:
+        futs = [disp.submit(p, tuple(range(p + 1, 9))) for p in range(4)]
+        for p, f in enumerate(futs):
+            np.testing.assert_array_equal(
+                f.result(timeout=10), naive_counts(rows[p], rows[p + 1:]))
+        assert disp.flushes == 1 and disp.batch_occupancy == 4.0
+        assert disp.stats()["sweep_requests"] == 4
+    finally:
+        disp.stop()
+
+
+def test_dispatcher_partial_flush_on_timeout():
+    rows = rand_rows(4, 3)
+    arena = BitmapArena.from_bitmaps(rows, device="cpu")
+    disp = jb.SweepDispatcher(arena, jb.TorchBackend(), n_clients=8,
+                              flush_us=1_000)
+    try:
+        got = disp.sweep(0, (1, 2, 3))
+        np.testing.assert_array_equal(got, naive_counts(rows[0], rows[1:]))
+        assert disp.flushes == 1 and disp.batch_occupancy == 1.0
+    finally:
+        disp.stop()
+
+
+def test_dispatcher_error_resolves_every_future():
+    class Bomb(jb.JoinBackend):
+        def sweep_many(self, arena, requests):
+            raise RuntimeError("batch boom")
+
+    arena = BitmapArena.from_bitmaps(rand_rows(4, 3), device="cpu")
+    disp = jb.SweepDispatcher(arena, Bomb(), n_clients=2, flush_us=200_000)
+    try:
+        futs = [disp.submit(0, (1,)), disp.submit(1, (2, 3))]
+        for f in futs:
+            with pytest.raises(RuntimeError, match="batch boom"):
+                f.result(timeout=10)
+    finally:
+        disp.stop()
+
+
+def test_dispatcher_concurrent_clients_agree_with_serial():
+    rows = rand_rows(20, 10)
+    arena = BitmapArena.from_bitmaps(rows, device="cpu")
+    disp = jb.SweepDispatcher(arena, jb.TorchBackend(), n_clients=6)
+    errs = []
+
+    def client(p):
+        try:
+            exts = tuple(i for i in range(20) if i != p)
+            for _ in range(5):
+                np.testing.assert_array_equal(
+                    disp.sweep(p, exts),
+                    naive_counts(rows[p], rows[list(exts)]))
+        except BaseException as e:  # noqa: BLE001
+            errs.append(e)
+
+    threads = [threading.Thread(target=client, args=(p,))
+               for p in range(6)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        disp.stop()
+    assert not any(t.is_alive() for t in threads)
+    assert not errs, errs
+    assert disp.requests == 30
+
+
+def test_dispatcher_submit_after_stop_raises():
+    arena = BitmapArena.from_bitmaps(rand_rows(2, 2), device="cpu")
+    disp = jb.SweepDispatcher(arena, jb.TorchBackend(), n_clients=1)
+    disp.stop()
+    with pytest.raises(RuntimeError, match="stopped"):
+        disp.submit(0, (1,))

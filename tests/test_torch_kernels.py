@@ -1,0 +1,166 @@
+"""The kernels' plain PyTorch versions against the reference's Pallas
+kernels (interpret mode) and jnp oracles, and the wrappers' device rule.
+
+Counts are integers, so every comparison is exact. The CUDA kernels are
+held against these plain versions on the card in test_torch_cuda.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _hyp import given, settings, st
+
+from repro.kernels.bitmap_join.kernel import bitmap_join_many_kernel
+from repro.kernels.bitmap_join.ops import bitmap_join_many as r_join_ops
+from repro.kernels.bitmap_join.ref import bitmap_join_many_ref as r_join_ref
+from repro.kernels.gather_intersect.kernel import (
+    gather_intersect_many_kernel)
+from repro.kernels.gather_intersect.ops import (
+    gather_intersect_many as r_gather_ops)
+from repro.kernels.gather_intersect.ref import (
+    gather_intersect_many_np, gather_intersect_many_ref as r_gather_ref)
+from repro_torch.core.tidlist import to_device_words
+from repro_torch.kernels.bitmap_join import ops as bj
+from repro_torch.kernels.bitmap_join.ref import (bitmap_join_many_ref,
+                                                 popcount32)
+from repro_torch.kernels.gather_intersect import ops as gi
+from repro_torch.kernels.gather_intersect.ref import (
+    gather_intersect_many_ref)
+
+RNG = np.random.default_rng(11)
+SPECIAL = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF, 0x55555555,
+                    0xAAAAAAAA, 0x0F0F0F0F, 0xF0F0F0F0, 0x80000001],
+                   np.uint32)
+
+
+def words(shape, rng=RNG):
+    return rng.integers(0, 2 ** 32, size=shape, dtype=np.uint32)
+
+
+def t32(a):
+    return to_device_words(a, "cpu")
+
+
+def tids_batch(b, s, w, rng=RNG, empty_rows=()):
+    """[b, s] sorted tids padded with -1; row 0 sits on bit 31s."""
+    tids = np.full((b, s), -1, np.int32)
+    for i in range(b):
+        if i in empty_rows or s == 0:
+            continue
+        if i == 0:
+            t = np.arange(min(s, w)) * 32 + 31
+        else:
+            n = int(rng.integers(0, min(s, 32 * w) + 1))
+            t = np.sort(rng.choice(32 * w, size=n, replace=False))
+        tids[i, :len(t)] = t
+    return tids
+
+
+# -------------------------------------------------------------- popcount
+def test_popcount32_matches_numpy_on_special_and_random_words():
+    x = np.concatenate([SPECIAL, words(5000)])
+    got = popcount32(t32(x)).numpy()
+    np.testing.assert_array_equal(got, np.bitwise_count(x))
+
+
+@settings(max_examples=30, deadline=None, database=None)
+@given(st.lists(st.integers(0, 2 ** 32 - 1), min_size=1, max_size=64))
+def test_property_popcount32(xs):
+    x = np.array(xs, np.uint32)
+    np.testing.assert_array_equal(popcount32(t32(x)).numpy(),
+                                  np.bitwise_count(x))
+
+
+# ------------------------------------------------------ bitmap_join_many
+@pytest.mark.parametrize("b,e,w", [(1, 1, 1), (3, 7, 33), (2, 64, 512),
+                                   (5, 70, 600), (4, 1, 12)])
+def test_bitmap_join_many_plain_matches_reference(b, e, w):
+    p, x = words((b, w)), words((b, e, w))
+    p[0, :min(w, len(SPECIAL))] = SPECIAL[:w]
+    got = bitmap_join_many_ref(t32(p), t32(x)).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(
+        got, np.asarray(r_join_ref(jnp.asarray(p), jnp.asarray(x))))
+    np.testing.assert_array_equal(
+        got, np.asarray(bitmap_join_many_kernel(
+            jnp.asarray(p), jnp.asarray(x), interpret=True)))
+
+
+def test_bitmap_join_many_wrapper_masks_like_reference():
+    p, x = words((2, 8)), words((2, 5, 8))
+    mask = np.array([[1, 1, 1, 0, 0], [1, 0, 0, 0, 0]], bool)
+    got = bj.bitmap_join_many(t32(p), t32(x), torch.from_numpy(mask))
+    want = r_join_ops(jnp.asarray(p), jnp.asarray(x), jnp.asarray(mask),
+                      mode="ref")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@settings(max_examples=10, deadline=None, database=None)
+@given(st.integers(1, 5), st.integers(1, 20), st.integers(1, 70))
+def test_property_bitmap_join_many_plain(b, e, w):
+    p, x = words((b, w)), words((b, e, w))
+    np.testing.assert_array_equal(
+        bitmap_join_many_ref(t32(p), t32(x)).numpy(),
+        np.asarray(r_join_ref(jnp.asarray(p), jnp.asarray(x))))
+
+
+# ------------------------------------------------- gather_intersect_many
+@pytest.mark.parametrize("b,s,e,w", [(1, 7, 1, 2), (3, 16, 4, 3),
+                                     (5, 33, 2, 8), (2, 64, 6, 4),
+                                     (4, 64, 1, 40)])
+def test_gather_intersect_many_plain_matches_reference(b, s, e, w):
+    tids = tids_batch(b, s, w, empty_rows=(b - 1,) if b > 1 else ())
+    x = words((b, e, w))
+    got = gather_intersect_many_ref(torch.from_numpy(tids), t32(x)).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, gather_intersect_many_np(tids, x))
+    np.testing.assert_array_equal(
+        got, np.asarray(r_gather_ref(jnp.asarray(tids), jnp.asarray(x))))
+    np.testing.assert_array_equal(
+        got, np.asarray(gather_intersect_many_kernel(
+            jnp.asarray(tids), jnp.asarray(x), interpret=True)))
+
+
+def test_gather_intersect_all_padding_and_empty_tid_axis():
+    x = np.full((2, 2, 2), 0xFFFFFFFF, np.uint32)
+    tids = np.full((2, 9), -1, np.int32)
+    tids[0, :3] = [1, 40, 63]
+    got = gi.gather_intersect_many(torch.from_numpy(tids), t32(x))
+    np.testing.assert_array_equal(got.numpy(), [[3, 3], [0, 0]])
+    empty = torch.zeros((2, 0), dtype=torch.int32)
+    got = gi.gather_intersect_many(empty, t32(words((2, 3, 4))))
+    want = r_gather_ops(jnp.zeros((2, 0), jnp.int32),
+                        jnp.asarray(words((2, 3, 4))), mode="ref")
+    assert got.shape == (2, 3) and not got.any()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_gather_intersect_wrapper_masks_like_reference():
+    tids = tids_batch(3, 20, 5)
+    x = words((3, 4, 5))
+    mask = RNG.random((3, 4)) < 0.5
+    got = gi.gather_intersect_many(torch.from_numpy(tids), t32(x),
+                                   torch.from_numpy(mask))
+    want = r_gather_ops(jnp.asarray(tids), jnp.asarray(x),
+                        jnp.asarray(mask), mode="pallas-interpret")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ----------------------------------------------------------- device rule
+def test_cpu_tensors_run_the_plain_version_without_launching():
+    b0, g0 = bj.launches, gi.launches
+    bj.bitmap_join_many(t32(words((2, 4))), t32(words((2, 3, 4))))
+    gi.gather_intersect_many(torch.from_numpy(tids_batch(2, 8, 4)),
+                             t32(words((2, 3, 4))))
+    assert (bj.launches, gi.launches) == (b0, g0)
+
+
+def test_wrappers_reject_bad_inputs():
+    p, x = t32(words((2, 4))), t32(words((2, 3, 4)))
+    with pytest.raises(TypeError):
+        bj.bitmap_join_many(p.long(), x)
+    with pytest.raises(ValueError):
+        bj.bitmap_join_many(p[:1], x)
+    with pytest.raises(TypeError):
+        gi.gather_intersect_many(torch.zeros((2, 3)), x)
+    with pytest.raises(ValueError):
+        gi.gather_intersect_many(torch.zeros((3, 3), dtype=torch.int32), x)
