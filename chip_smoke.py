@@ -15,14 +15,25 @@ Phases, each fatal on failure:
   3. main     batch bucket mining of T10I4D100K-size data (100,000
               transactions x 500 items, min support 0.5%) with
               ``representation="auto"``: supports must equal the host
-              ``mine_serial`` and both kernels must have launched;
+              ``mine_serial`` and both batched kernels must have
+              launched;
   4. bitmap   the same data with ``representation="bitmap"`` at
               max_k=4: only ``bitmap_join_many`` launches;
-  5. profile  rerun phases 3 and 4 under torch.profiler for the device
-              busy share and the top kernels by device time;
-  6. report   time each kernel, its plain version and the gathered-copy
-              step on inputs captured from phase 3, and print the
-              kernels line and the final status line.
+  5. depth-first  the phase-3 mine at ``granularity="depth-first"``:
+              supports equal ``mine_serial``, ``bitmap_join_many``
+              launched, and ``gather_intersect_many`` too when a class
+              sweep was sparse;
+  6. auto     the same at ``granularity="auto"``;
+  7. entry    the single-prefix entry point ``repro_torch.kernels.
+              bitmap_join.bitmap_join`` at the kernels-bench shape
+              (E=4,096 x W=4,096) and at the T10I4D100K level-2 shape
+              (one item row against all 500 at W=3,125), each held
+              against its plain version and the host count;
+  8. profile  rerun phases 3-6 under torch.profiler for the device busy
+              share and the top kernels by device time;
+  9. report   time each kernel, its plain version and the gathered-copy
+              step on inputs captured from phases 3, 5 and 7, and print
+              the kernels line and the final status line.
 
 The script imports nothing of JAX or of the reference package ``repro``.
 It exits non-zero without a result when no CUDA device is present.
@@ -45,6 +56,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
 MAIN_MAX_K = 8
 BITMAP_MAX_K = 4
+BENCH_E, BENCH_W = 4096, 4096  # benchmarks/kernels_bench.py's join shape
 SPIN_CYCLES = 200_000_000      # ~0.1 s of GPU spin ahead of a timing
 L2_FLUSH_BYTES = 256 << 20     # > the H100's 50 MB L2
 
@@ -160,8 +172,10 @@ def phase_parity(dev):
     from repro_torch.kernels.gather_intersect import ops as gi
     from repro_torch.kernels.gather_intersect.ref import (
         gather_intersect_many_ref)
+    from repro_torch.kernels.bitmap_join.ref import bitmap_join_ref
     rng = np.random.default_rng(0)
-    worst = {"bitmap_join_many": 0, "gather_intersect_many": 0}
+    worst = {"bitmap_join_many": 0, "gather_intersect_many": 0,
+             "bitmap_join": 0}
 
     def held(name, got, want, shape):
         torch.cuda.synchronize()
@@ -215,6 +229,24 @@ def phase_parity(dev):
     pad = torch.full((4, 64), -1, dtype=torch.int32, device=dev)
     held("gather_intersect_many", gi.gather_intersect_many(pad, x[:4]),
          gather_intersect_many_ref(pad, x[:4]), "all padding")
+
+    # the entry point's shapes (kernels bench; T10I4D100K level 2, rows
+    # off the 16-byte grid), then edges: E=1, W % 4 != 0, W past one
+    # shared-memory chunk, a tensor whose base is off the 16-byte grid,
+    # all-ones words
+    for e, w in [(BENCH_E, BENCH_W), (500, 3125), (1, 1), (1, 3), (7, 33),
+                 (513, 1025), (3, 12289), (9, 12301)]:
+        p = rand_words(rng, (w,), dev)
+        x = rand_words(rng, (e, w), dev)
+        held("bitmap_join", bj.bitmap_join(p, x), bitmap_join_ref(p, x),
+             (e, w))
+    x = rand_words(rng, (9, 37), dev)[1:]
+    p = rand_words(rng, (37,), dev)
+    held("bitmap_join", bj.bitmap_join(p, x), bitmap_join_ref(p, x),
+         "offset base (8, 37)")
+    ones = torch.full((5, 40), -1, dtype=torch.int32, device=dev)
+    held("bitmap_join", bj.bitmap_join(ones[0], ones),
+         bitmap_join_ref(ones[0], ones), "all-ones (5, 40)")
     return worst
 
 
@@ -238,8 +270,10 @@ class Recorder:
         return self.shapes.most_common(1)[0][0]
 
 
-def phase_mine(dev, bitmaps, counts, min_support, representation, max_k,
-               serial, recorders=None):
+def phase_mine(dev, bitmaps, counts, min_support, granularity,
+               representation, max_k, serial, recorders=None):
+    """One mine through ``repro_torch.mine`` with the launch counts set
+    to 0 just before it; returns (launches per kernel, metrics)."""
     import repro_torch
     from repro_torch.core import join_backend
     from repro_torch.kernels.bitmap_join import ops as bj
@@ -252,7 +286,7 @@ def phase_mine(dev, bitmaps, counts, min_support, representation, max_k,
     gi.launches = 0
     t0 = time.perf_counter()
     result, met = repro_torch.mine(
-        bitmaps, min_support, device=dev, granularity="bucket",
+        bitmaps, min_support, device=dev, granularity=granularity,
         policy="clustered", max_k=max_k, representation=representation,
         item_counts=counts)
     wall = time.perf_counter() - t0
@@ -262,45 +296,145 @@ def phase_mine(dev, bitmaps, counts, min_support, representation, max_k,
         join_backend.bitmap_join_many = recorders["bitmap_join_many"].fn
         join_backend.gather_intersect_many = recorders[
             "gather_intersect_many"].fn
+    label = f"{granularity}, {representation}, max_k={max_k}"
     want = {c: s for c, s in serial.items() if len(c) <= max_k}
     if result != want:
-        raise SystemExit(f"{representation}: supports differ from "
+        raise SystemExit(f"mine[{label}]: supports differ from "
                          f"mine_serial ({len(result)} vs {len(want)})")
-    log(f"mine[{representation}, max_k={max_k}]: wall_s={wall:.3f} "
+    log(f"mine[{label}]: wall_s={wall:.3f} "
         f"itemsets={len(result)} flushes={met.flushes} "
         f"occupancy={met.batch_occupancy:.2f} "
         f"dense_sweeps={met.dense_sweeps} sparse_sweeps={met.sparse_sweeps} "
+        f"class_or_bucket_tasks={met.buckets} "
+        f"peak_retained_bitmaps={met.peak_retained_bitmaps} "
         f"h2d_bytes={met.h2d_bytes} "
         f"sweep_s={met.per_device[0]['sweep_s']:.3f} "
         f"launches={json.dumps(launches)} supports==mine_serial ok")
-    return launches, wall
+    return launches, met
 
 
-def phase_profile(dev, bitmaps, counts, min_support, representation,
-                  max_k):
+def phase_entry(dev, bitmaps, counts):
+    """The single-prefix entry point on the card, with its launch count
+    set to 0 just before and read just after: the kernels-bench shape
+    and the T10I4D100K level-2 shape (the most frequent item's row
+    against every item row). Returns (launches, {shape label: inputs})."""
+    import numpy as np
+    import torch
+    from repro_torch.core.tidlist import support_counts, to_device_words
+    from repro_torch.kernels import bitmap_join as entry
+    from repro_torch.kernels.bitmap_join import ops as bj
+    from repro_torch.kernels.bitmap_join.ref import bitmap_join_ref
+    rng = np.random.default_rng(1)
+    top = int(np.argmax(counts))
+    inputs = {
+        "kernels-bench": (rand_words(rng, (BENCH_W,), dev),
+                          rand_words(rng, (BENCH_E, BENCH_W), dev)),
+        "t10i4 level 2": (to_device_words(bitmaps[top], dev),
+                          to_device_words(bitmaps, dev)),
+    }
+    bj.single_launches = 0
+    got = {k: entry.bitmap_join(p, x) for k, (p, x) in inputs.items()}
+    torch.cuda.synchronize()
+    launches = bj.single_launches
+    for k, (p, x) in inputs.items():
+        want = bitmap_join_ref(p, x)
+        if not torch.equal(got[k], want):
+            raise SystemExit(f"bitmap_join disagrees with its plain "
+                             f"version at {k} {tuple(x.shape)}")
+        log(f"entry bitmap_join[{k}] {tuple(x.shape)}: equals its plain "
+            f"version ok")
+    host = support_counts(bitmaps[top], bitmaps)
+    if not np.array_equal(got["t10i4 level 2"].cpu().numpy(), host):
+        raise SystemExit("bitmap_join disagrees with the host count at "
+                         "the level-2 shape")
+    log(f"entry bitmap_join: level-2 counts equal the host's "
+        f"support_counts (item {top}) ok; launches={launches}")
+    if launches != len(inputs):
+        raise SystemExit(f"the entry point launched bitmap_join "
+                         f"{launches} times for {len(inputs)} calls")
+    return launches, inputs
+
+
+def phase_profile(dev, bitmaps, counts, min_support, granularity,
+                  representation, max_k):
     """A rerun of a mining phase under torch.profiler: how much of its
     wall time the device was busy, and on what."""
     import repro_torch
 
     def run():
         repro_torch.mine(bitmaps, min_support, device=dev,
-                         granularity="bucket", policy="clustered",
+                         granularity=granularity, policy="clustered",
                          max_k=max_k, representation=representation,
                          item_counts=counts)
     wall, busy, top = device_profile(run)
-    log(f"profile mine[{representation}, max_k={max_k}] (profiled rerun): "
-        f"wall_s={wall:.3f} device_busy_s={busy:.4f} "
+    log(f"profile mine[{granularity}, {representation}, max_k={max_k}] "
+        f"(profiled rerun): wall_s={wall:.3f} device_busy_s={busy:.4f} "
         f"device_busy_share={busy / wall:.5f}")
     for sec, count, key in top:
         log(f"  device {sec:.4f} s in {count} x {key[:90]}")
 
 
-def report(dev, recorders, launches, worst):
-    """The kernels line: each kernel timed at its most frequent main-path
-    shape, on inputs captured from that run."""
+def work(name, a, x):
+    """(bytes, integer ops) the kernel ``name`` must move and do on these
+    inputs: each input read once, the counts written once."""
+    import torch
+    if name == "bitmap_join":
+        e, w = x.shape
+        return (w + e * w + e) * 4, 3 * e * w
+    b, e, w = x.shape
+    if name == "bitmap_join_many":
+        return (b * w + b * e * w + b * e) * 4, 3 * b * e * w
+    # each valid tid reads one 32-byte sector of every extension row in
+    # its batch row; a sector serves every tid inside it
+    sectors = sum(int(torch.unique(r[r >= 0] >> 8).numel()) for r in a)
+    valid = int((a >= 0).sum())
+    return sectors * e * 32 + a.numel() * 4 + b * e * 4, 4 * valid * e
+
+
+def measure(name, kernel, plain, a, x):
+    """Time one kernel against its plain version and its bound on the
+    inputs ``a``, ``x``; fails if the two disagree."""
+    import torch
+    got, want = kernel(a, x), plain(a, x)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if err:
+        raise SystemExit(f"{name} disagrees with its plain version at "
+                         f"{tuple(x.shape)}")
+    # a batched kernel reads exts the backend has just gathered, so the
+    # main path finds them in L2: "ms" is that warm time, "ms_cold" the
+    # time from HBM, the one the bytes bound speaks of
+    ms, host_ms = time_ms(lambda: kernel(a, x))
+    ms_cold, _ = time_ms(lambda: kernel(a, x), cold=True)
+    plain_ms, _ = time_ms(lambda: plain(a, x), iters=3, warmup=1)
+    nbytes, ops = work(name, a, x)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "ms_cold": ms_cold, "host_ms": host_ms,
+            "bytes": nbytes, "ops": ops}
+
+
+def log_time(name, where, shape, m):
+    log(f"time {name} at {shape} ({where}): kernel {m['ms']:.4f} ms on "
+        f"the device, L2-warm ({m['ms_cold']:.4f} ms from HBM; "
+        f"{m['host_ms']:.4f} ms host per launch), plain "
+        f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+        f"({m['bound_by']}: {m['bytes']} B, {m['ops']} ops)")
+
+
+def report(dev, recorders, df_recorders, entry_inputs, launches, worst):
+    """The kernels line: each batched kernel timed at its most frequent
+    phase-3 shape (and at its most frequent depth-first shape), the
+    single-prefix kernel at the entry point's shapes, all on inputs
+    captured from those runs. ``launches`` maps each kernel to its
+    launches per phase."""
     import torch
     from repro_torch.kernels.bitmap_join import ops as bj
-    from repro_torch.kernels.bitmap_join.ref import bitmap_join_many_ref
+    from repro_torch.kernels.bitmap_join.ref import (bitmap_join_many_ref,
+                                                     bitmap_join_ref)
     from repro_torch.kernels.gather_intersect import ops as gi
     from repro_torch.kernels.gather_intersect.ref import (
         gather_intersect_many_ref)
@@ -313,60 +447,55 @@ def report(dev, recorders, launches, worst):
          gather_intersect_many_ref,
          "src/repro_torch/kernels/csrc/gather_intersect_many.cu",
          "src/repro/kernels/gather_intersect/kernel.py:74"),
+        ("bitmap_join", bj.bitmap_join, bitmap_join_ref,
+         "src/repro_torch/kernels/csrc/bitmap_join.cu",
+         "src/repro/kernels/bitmap_join/kernel.py:56"),
     ]
     for name, kernel, plain, source, replaces in specs:
-        rec = recorders[name]
-        shape = rec.main_shape()
-        a, x = rec.inputs[shape]
-        got, want = kernel(a, x), plain(a, x)
-        torch.cuda.synchronize()
-        err = max(worst[name], int((got.long() - want.long()).abs().max()))
-        if err:
-            raise SystemExit(f"{name} disagrees on main-path inputs")
-        # the backend hands the kernel exts it has just gathered, so the
-        # main path reads them from L2: "ms" is that warm time, "ms_cold"
-        # the time from HBM, the one the bytes bound speaks of
-        ms, host_ms = time_ms(lambda: kernel(a, x))
-        ms_cold, _ = time_ms(lambda: kernel(a, x), cold=True)
-        plain_ms, _ = time_ms(lambda: plain(a, x), iters=3, warmup=1)
-        b, e, w = x.shape
-        if name == "bitmap_join_many":
-            nbytes = (b * w + b * e * w + b * e) * 4
-            ops = 3 * b * e * w
+        # (label, inputs, where they came from); the first case gives
+        # the line's numbers: the phase-3 shape, or the kernels-bench one
+        if name == "bitmap_join":
+            cases = [(k, a, x, f"entry point, {k}")
+                     for k, (a, x) in entry_inputs.items()]
         else:
-            # each valid tid reads one 32-byte sector of every extension
-            # row in its batch row; a sector serves every tid inside it
-            sectors = sum(int(torch.unique(r[r >= 0] >> 8).numel())
-                          for r in a)
-            valid = int((a >= 0).sum())
-            nbytes = sectors * e * 32 + a.numel() * 4 + b * e * 4
-            ops = 4 * valid * e
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / INT32_OPS_PER_S * 1e3
+            cases = []
+            for phase, recs in (("bucket", recorders),
+                                ("depth-first", df_recorders)):
+                rec = recs[name]
+                if not rec.shapes:
+                    continue
+                log(f"  {name} {phase} shapes: "
+                    f"{dict(rec.shapes.most_common(8))}")
+                sh = rec.main_shape()
+                cases.append((phase, *rec.inputs[sh],
+                              f"{rec.shapes[sh]} of "
+                              f"{sum(rec.shapes.values())} {phase}-phase "
+                              "calls"))
+        shapes = {}
+        for label, a, x, where in cases:
+            m = measure(name, kernel, plain, a, x)
+            log_time(name, where, (tuple(a.shape), tuple(x.shape)), m)
+            shapes[label] = {"shape": [list(a.shape), list(x.shape)],
+                             "where": where, **m}
+        m = shapes[cases[0][0]]
+        per_phase = launches[name]
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "ms_cold": ms_cold, "host_ms": host_ms,
-            "shape": [list(s) for s in shape],
-            "main_path_calls_at_shape": rec.shapes[shape],
+            "replaces": replaces, "launches": sum(per_phase.values()),
+            "max_abs_err": max(worst[name], m["max_abs_err"]),
+            **{k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "ms_cold", "host_ms")},
+            "launches_by_phase": per_phase, "shapes": shapes,
         })
-        log(f"time {name} at {shape} ({rec.shapes[shape]} of "
-            f"{sum(rec.shapes.values())} main-path calls): kernel {ms:.4f} "
-            f"ms on the device, L2-warm ({ms_cold:.4f} ms from HBM; "
-            f"{host_ms:.4f} ms host per launch), plain "
-            f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
-            f"({rows[-1]['bound_by']}: {nbytes} B, {ops} ops)")
-        log(f"  {name} shapes: {dict(rec.shapes.most_common(8))}")
-        if name == "bitmap_join_many":
-            # the backend's gathered [B, E, W] exts copy out of the mirror
-            mirror = x.reshape(-1, w)
-            idx = torch.randint(0, mirror.shape[0], (b * e,), device=dev)
-            copy_ms, _ = time_ms(lambda: mirror.index_select(0, idx))
-            log(f"time gathered exts copy [{b}, {e}, {w}] int32: "
-                f"{copy_ms:.4f} ms")
+    # the backend's gathered [B, E, W] exts copy out of the mirror, at
+    # the phase-3 shape of bitmap_join_many
+    a, x = recorders["bitmap_join_many"].inputs[
+        recorders["bitmap_join_many"].main_shape()]
+    b, e, w = x.shape
+    mirror = x.reshape(-1, w)
+    idx = torch.randint(0, mirror.shape[0], (b * e,), device=dev)
+    copy_ms, _ = time_ms(lambda: mirror.index_select(0, idx))
+    log(f"time gathered exts copy [{b}, {e}, {w}] int32: {copy_ms:.4f} ms")
     return rows
 
 
@@ -397,24 +526,54 @@ def main() -> int:
     log(f"mine_serial max_k={MAIN_MAX_K}: {len(serial)} itemsets in "
         f"{time.perf_counter() - t0:.1f} s (host reference)")
 
-    recorders = {"bitmap_join_many": Recorder(bitmap_join_many),
-                 "gather_intersect_many": Recorder(gather_intersect_many)}
-    launches, _ = phase_mine(dev, bitmaps, counts, min_support, "auto",
-                             MAIN_MAX_K, serial, recorders)
-    if min(launches.values()) == 0:
-        raise SystemExit(f"a kernel never launched on the main path: "
-                         f"{launches}")
-    bitmap_launches, _ = phase_mine(dev, bitmaps, counts, min_support,
-                                    "bitmap", BITMAP_MAX_K, serial)
-    if (bitmap_launches["bitmap_join_many"] == 0
-            or bitmap_launches["gather_intersect_many"] != 0):
-        raise SystemExit(f"representation='bitmap' must launch only "
-                         f"bitmap_join_many: {bitmap_launches}")
+    def recs():
+        return {"bitmap_join_many": Recorder(bitmap_join_many),
+                "gather_intersect_many": Recorder(gather_intersect_many)}
 
-    phase_profile(dev, bitmaps, counts, min_support, "auto", MAIN_MAX_K)
-    phase_profile(dev, bitmaps, counts, min_support, "bitmap",
-                  BITMAP_MAX_K)
-    rows = report(dev, recorders, launches, worst)
+    launches = {"bitmap_join_many": {}, "gather_intersect_many": {},
+                "bitmap_join": {}}
+
+    def note(phase, got):
+        for name, n in got.items():
+            launches[name][phase] = n
+
+    recorders = recs()
+    got, _ = phase_mine(dev, bitmaps, counts, min_support, "bucket",
+                        "auto", MAIN_MAX_K, serial, recorders)
+    if min(got.values()) == 0:
+        raise SystemExit(f"a kernel never launched on the main path: "
+                         f"{got}")
+    note("bucket", got)
+    got, _ = phase_mine(dev, bitmaps, counts, min_support, "bucket",
+                        "bitmap", BITMAP_MAX_K, serial)
+    if got["bitmap_join_many"] == 0 or got["gather_intersect_many"] != 0:
+        raise SystemExit(f"representation='bitmap' must launch only "
+                         f"bitmap_join_many: {got}")
+    note("bucket-bitmap", got)
+    df_recorders = recs()
+    for granularity in ("depth-first", "auto"):
+        got, met = phase_mine(
+            dev, bitmaps, counts, min_support, granularity, "auto",
+            MAIN_MAX_K, serial,
+            df_recorders if granularity == "depth-first" else None)
+        if got["bitmap_join_many"] == 0 or (
+                met.sparse_sweeps > 0 and got["gather_intersect_many"] == 0):
+            raise SystemExit(f"granularity={granularity!r}: a kernel of "
+                             f"its sweeps never launched: {got}, "
+                             f"sparse_sweeps={met.sparse_sweeps}")
+        note(granularity, got)
+    n, entry_inputs = phase_entry(dev, bitmaps, counts)
+    note("entry", {"bitmap_join": n})
+
+    for granularity, representation, max_k in (
+            ("bucket", "auto", MAIN_MAX_K),
+            ("bucket", "bitmap", BITMAP_MAX_K),
+            ("depth-first", "auto", MAIN_MAX_K),
+            ("auto", "auto", MAIN_MAX_K)):
+        phase_profile(dev, bitmaps, counts, min_support, granularity,
+                      representation, max_k)
+    rows = report(dev, recorders, df_recorders, entry_inputs, launches,
+                  worst)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

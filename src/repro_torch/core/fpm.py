@@ -1,6 +1,6 @@
-"""Apriori FPM on the task scheduler — the paper's application.
+"""Apriori/Eclat FPM on the task scheduler — the paper's application.
 
-Two level-synchronous task granularities:
+Three task granularities, and ``auto`` between them:
 
   granularity="candidate"    one task per candidate k-itemset (paper §2).
       The per-task join reuses a per-worker-thread LRU cache of *prefix
@@ -13,16 +13,27 @@ Two level-synchronous task granularities:
       dispatcher, which coalesces many workers' buckets into batched
       kernel launches (repro_torch.core.join_backend). A driver barrier
       separates level k from k+1.
+  granularity="depth-first"  barrier-free equivalence-class recursion.
+      Each task owns one class (prefix P, sibling extensions E): it
+      sweeps E through the dispatcher, records the frequent extensions,
+      forms the child classes P+(e,) × {siblings > e} Eclat-style (no
+      global candidate generation), materializes each child's row
+      exactly once into the arena and hands the child task the handle,
+      so no child recomputes or cache-probes a prefix intersection.
+      Children spawn onto the spawning worker's queue; one terminal
+      ``wait_all`` replaces every inter-level barrier.
+  granularity="auto"         the bucket engine, with model-chosen
+      buckets detached into depth-first class tasks mid-run.
 
 Every bitmap lives in one ``BitmapArena`` (repro_torch.core.tidlist):
 item bitmaps are loaded once (handle == item id), prefix intersections
-are refcounted arena rows, and the arena's device mirror is synced
-incrementally — repeated sweeps cost ~one initial upload
-(``MiningMetrics.h2d_bytes``) instead of one upload per sweep.
+and child handoffs are refcounted arena rows, and the arena's device
+mirror is synced incrementally — repeated sweeps cost ~one initial
+upload (``MiningMetrics.h2d_bytes``) instead of one upload per sweep.
 
-Depth-first and ``auto`` granularity, multi-device meshes, multi-host
-runs, streaming deltas and tracing belong to later slices of the port
-and raise ``NotImplementedError`` here.
+Multi-device meshes, multi-host runs, streaming deltas and tracing
+belong to later slices of the port and raise ``NotImplementedError``
+here.
 """
 from __future__ import annotations
 
@@ -37,27 +48,18 @@ import torch
 
 from repro_torch.core import tidlist
 from repro_torch.core.buckets import (REPRESENTATIONS, Bucket, DensityModel,
-                                      group_by_prefix, rows_to_bytes)
-from repro_torch.core.itemsets import Itemset, gen_candidates, prefix_hash
+                                      class_rows_touched, group_by_prefix,
+                                      rows_to_bytes)
+from repro_torch.core.itemsets import (Itemset, gen_candidates,
+                                       itemset_hash, prefix_hash)
 from repro_torch.core.join_backend import (FLUSH_US, MAX_BATCH,
                                            SweepDispatcher, resolve_backend)
 from repro_torch.core.scheduler import TaskScheduler, make_policy
-from repro_torch.core.tidlist import BitmapArena
+from repro_torch.core.tidlist import BitmapArena, resolve_device
 from repro_torch.obs import MetricsRegistry
 from repro_torch.obs import schema as obs_schema
 
-GRANULARITIES = ("bucket", "candidate")
-
-
-def resolve_device(device: "torch.device | str | None") -> torch.device:
-    """``None`` means the CUDA card. Asking for CUDA on a host without
-    one raises at once: the CPU runs only when the caller names it."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to mine on "
-            "the host")
-    return dev
+GRANULARITIES = ("bucket", "candidate", "depth-first", "auto")
 
 
 @dataclass
@@ -72,8 +74,9 @@ class MiningMetrics:
     cache_partial_hits: int = 0
     rows_touched: int = 0        # bitmap rows actually read (measured)
     bytes_swept: int = 0         # rows_touched * W * 4
-    # arena gauges: how many non-base rows (cached prefix intersections)
-    # were alive at once, and the bitmap payload uploaded host→device
+    # arena gauges: how many non-base rows (cached prefix intersections
+    # + depth-first handoff rows) were alive at once, and the bitmap
+    # payload uploaded host→device
     peak_retained_bitmaps: int = 0
     peak_bytes_retained: int = 0
     h2d_bytes: int = 0
@@ -118,7 +121,10 @@ class _PrefixCache:
     SECOND reference on the caller's behalf before returning — the
     caller must release it when done. This keeps a handle live across
     the async dispatcher flight even if the entry is evicted meanwhile,
-    and makes ``cache_size=0`` a valid "no cache" setting."""
+    and makes ``cache_size=0`` a valid "no cache" setting.
+
+    The depth-first engine never touches this cache: the parent→child
+    handle handoff makes it vestigial there (cache_misses == 0)."""
 
     def __init__(self, arena: BitmapArena, maxsize: int = 32,
                  model: Optional[DensityModel] = None):
@@ -346,23 +352,24 @@ def mine(bitmaps: np.ndarray, min_support: int, *,
     host. ``backend`` names the sweep executor: "auto" (the kernel
     backend, "torch") or "numpy" (the host path, only when named).
     ``granularity`` selects the unit of scheduler task: "bucket" (one
-    task per (k-1)-prefix, batched extension sweep) or "candidate" (one
-    scalar join per candidate). ``representation`` selects the row
-    representation of prefix intersections: "bitmap" (word-columns
-    only), "sparse" (tid-lists wherever legal), or "auto" (density-driven
-    choice; the default). ``item_counts`` passes per-item ones counts a
-    caller already has (``pack_database(..., return_counts=True)``).
+    task per (k-1)-prefix, batched extension sweep), "candidate" (one
+    scalar join per candidate), "depth-first" (barrier-free
+    equivalence-class recursion with parent→child handle handoff), or
+    "auto" (the bucket engine, detaching subtrees to depth-first class
+    tasks where the density model predicts they win).
+    ``representation`` selects the row representation of prefix
+    intersections and handoff rows: "bitmap" (word-columns only),
+    "sparse" (tid-lists or diffsets wherever legal), or "auto"
+    (density-driven choice; the default). ``item_counts`` passes
+    per-item ones counts a caller already has
+    (``pack_database(..., return_counts=True)``).
     ``max_batch``/``flush_us`` tune the sweep dispatcher's coalescing
     (requests per launch / straggler wait).
 
-    ``mesh``, ``hosts`` and ``trace`` (and the depth-first and auto
-    granularities) are the reference engine's options that later slices
-    of the port cover; here they raise ``NotImplementedError``."""
+    ``mesh``, ``hosts`` and ``trace`` are the reference engine's options
+    that later slices of the port cover; here they raise
+    ``NotImplementedError``."""
     dev = resolve_device(device)
-    if granularity in ("depth-first", "auto"):
-        raise NotImplementedError(
-            f"granularity={granularity!r} comes with the port's "
-            "depth-first slice")
     if mesh is not None:
         raise NotImplementedError("mesh= comes with the port's "
                                   "multi-device slice")
@@ -401,10 +408,15 @@ def mine_more(run: MiningRun, min_support: int, max_k: int,
     if delta is not None:
         raise NotImplementedError("delta= comes with the port's "
                                   "streaming slice")
-    _mine_levelwise(run.store, run.dispatchers[0], min_support, max_k,
-                    run.sched, run.metrics, result, frequent,
-                    run.granularity, run.cache_size, run.caches,
-                    model=run.model)
+    if run.granularity == "depth-first":
+        _mine_depth_first(run.store, run.dispatchers[0], min_support,
+                          max_k, run.sched, run.metrics, result, frequent,
+                          model=run.model)
+    else:
+        _mine_levelwise(run.store, run.dispatchers[0], min_support,
+                        max_k, run.sched, run.metrics, result, frequent,
+                        run.granularity, run.cache_size, run.caches,
+                        model=run.model)
 
 
 def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
@@ -413,9 +425,22 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
     """Level-synchronous engine: plan level k, spawn, barrier, plan
     level k+1 (the paper's §2 shape, at candidate or bucket grain).
     Candidate tasks join on the host directly; bucket tasks sweep
-    through the dispatcher."""
+    through the dispatcher.
+
+    ``granularity="auto"`` runs this engine with a per-bucket escape
+    hatch: when the density model predicts a prefix's subtree is sparse
+    (or thin enough that level barriers dominate), the whole bucket
+    detaches into a depth-first class task — the subtree mines
+    barrier-free and its itemsets never re-enter the level frontier
+    (``gen_candidates`` gets the full known-frequent set, so the
+    cross-prefix prune stays exact)."""
     n_w = store.n_words
     lock = threading.Lock()
+    df_miner = None
+    detached_tasks: List = []
+    if granularity == "auto" and model is not None:
+        df_miner = _ClassMiner(store, dispatcher, min_support, max_k,
+                               sched, metrics, result, model=model)
 
     def _thread_cache() -> _PrefixCache:
         tid = threading.get_ident()
@@ -478,11 +503,45 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
         finally:
             store.release(ph)
 
+    def detach_task(bucket: Bucket, own_support: int,
+                    psup: Tuple[int, ...]) -> None:
+        """granularity="auto" handoff: resolve the bucket's prefix
+        handle like a sweep task would, then run the depth-first class
+        body inline — its children spawn barrier-free class tasks, and
+        this whole subtree leaves the level frontier."""
+        cache = _thread_cache()
+        ph, prows = _prefix_handle(cache, bucket.prefix)
+        _account(prows)
+        df_miner.class_task(bucket.prefix, ph, bucket.exts, psup,
+                            own_support, True)
+
+    def _detach(plan: List[Bucket]) -> List[Bucket]:
+        """Spawn a class task for every bucket the model sends depth-
+        first; return the buckets that stay level-synchronous."""
+        keep = []
+        for b in plan:
+            ps = result.get(b.prefix)
+            if ps is not None and model.pick_granularity(ps) == "depth-first":
+                # the class task re-counts its own candidates
+                metrics.candidates -= len(b.exts)
+                # parent-level sibling supports (for dEclat children):
+                # support of prefix[:-1] + (e,), frequent by the Apriori
+                # prune, so present in ``result``
+                psup = tuple(result[b.prefix[:-1] + (e,)] for e in b.exts)
+                detached_tasks.append(
+                    sched.spawn(detach_task, b, ps, psup,
+                                attr=(b.key, b.prefix)))
+            else:
+                keep.append(b)
+        return keep
+
     def _spawn_sweeps(cands):
         """Spawn sweeps for ``cands`` (bucket- or candidate-grained) and
         return a collector to call AFTER ``wait_all``."""
-        if granularity == "bucket":
+        if granularity in ("bucket", "auto"):
             plan = group_by_prefix(cands)
+            if df_miner is not None:
+                plan = _detach(plan)
             metrics.buckets += len(plan)
             tasks = [sched.spawn(sweep_task, b, attr=(b.key, b.prefix))
                      for b in plan]
@@ -503,7 +562,12 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
 
     k = 2
     while frequent and k <= max_k:
-        cands = gen_candidates(frequent)
+        # detached subtrees' itemsets never rejoin ``frequent``, so the
+        # Apriori prune needs the full known-frequent membership (the
+        # result dict is complete here: the level barrier below also
+        # waited on every detached class task)
+        cands = (gen_candidates(frequent, known_frequent=result)
+                 if df_miner is not None else gen_candidates(frequent))
         if not cands:
             break
         metrics.levels += 1
@@ -511,6 +575,9 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
         frequent = []
         collect = _spawn_sweeps(cands)
         sched.wait_all()
+        if df_miner is not None:
+            _raise_task_errors(detached_tasks)
+            df_miner.raise_errors()
         for c, s in collect():
             if s >= min_support:
                 result[c] = s
@@ -518,6 +585,320 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
         frequent.sort()
         metrics.frequent += len(frequent)
         k += 1
+
+
+class _ClassMiner:
+    """Barrier-free equivalence-class machinery: tasks spawn child
+    classes. Shared by ``granularity="depth-first"`` (every root item is
+    a class) and ``granularity="auto"`` (the levelwise engine detaches
+    model-chosen prefix buckets into class tasks mid-run).
+
+    A task = one equivalence class (P, E) owning an arena handle for P's
+    row: it sweeps the |E| extensions through the dispatcher, records
+    the frequent extensions, then for each frequent sibling e (except
+    the last) makes the child row ONCE in the arena and spawns the child
+    class (P+(e,), {frequent siblings > e}) with the new handle. The
+    child never recomputes a prefix intersection — the handoff replaces
+    the LRU cache entirely. Eclat shape: no global candidate generation,
+    no Apriori cross-class prune (supports are identical; a few extra
+    infrequent candidates get swept).
+
+    Hybrid representation (``model`` set): the handed row's
+    representation is chosen per child by the density cost model —
+    dense word-column (``materialize``), sorted tid-list
+    (``push_tids``), or dEclat diffset anchored on P (``push_diffset``).
+    A sparse P is swept by the gather-intersect path, which returns
+    |payload ∩ e| — for a tid-list that IS the support, for a diffset
+    the class converts it with the parent-sibling supports handed down
+    at spawn (``support = psup[e] - |diff ∩ e|``). Sparse children of a
+    sparse parent are carved out of P's explicit tid set
+    (``resolve_tids``, reconstructed once per class), so no dense
+    intermediate is built.
+
+    On host-parallel backends sparse subtrees run PROJECTED instead: the
+    class sweep's [E, S] bit matrix (``sweep_bits``) is the dEclat
+    recursion state — a child class receives its sibling rows
+    column-masked to its own tid positions, its supports are row sums,
+    and no arena row, dispatcher hop or gather exists in the subtree's
+    interior. The kernel backend keeps the arena handoff path: rows live
+    in the device mirror, and every class sweep is a dispatcher request
+    batched into the kernels' launches. Class tasks touch only the host
+    store (materialize, carve, resolve); only the dispatcher thread
+    touches the device.
+
+    Memory bound: a handed row is live from its creation until the child
+    task's ``finally`` releases it (also on a task error — a leaked
+    refcount would keep the slot from recycling). With depth-first drain
+    order and spawn-onto-own-worker placement, each worker holds
+    O(depth × branching) live rows instead of a whole level's worth;
+    the arena measures the peak (``metrics.peak_retained_bitmaps``)."""
+
+    def __init__(self, store, dispatcher, min_support, max_k, sched,
+                 metrics, result, model=None):
+        self.store = store
+        self.dispatcher = dispatcher
+        self.min_support = min_support
+        self.max_k = max_k
+        self.sched = sched
+        self.metrics = metrics
+        self.result = result
+        self.model = model
+        self.n_w = store.n_words
+        self.lock = threading.Lock()
+        self.all_tasks: List = []
+        self._obs = 0     # observe() sampling counter (racy is fine)
+
+    def _class_tids(self, ph: int, ptids_hint) -> np.ndarray:
+        """P's explicit tid set, resolved once per class. A diffset's
+        spawner handed P's parent tid set down, so resolution is ONE
+        sorted difference, not a chain walk; a bitmap row is scanned
+        (billed as a sparsify)."""
+        store = self.store
+        rep = store.rep_of(ph)
+        if rep == tidlist.REP_DIFFSET:
+            if ptids_hint is not None:
+                return tidlist.sorted_difference(ptids_hint,
+                                                 store.tids_of(ph))
+            return store.resolve_tids(ph)
+        if rep == tidlist.REP_TIDLIST:
+            return store.tids_of(ph)
+        return store.resolve_tids(ph)
+
+    def _make_child(self, ph, e, csup, crep, shard, ptids, bits):
+        """One child handoff row in the model-picked representation.
+        Returns (handle, handoff-bytes-read, is-sparse). ``ptids`` is P's
+        explicit tid set and ``bits`` its membership row in ext e, both
+        resolved/gathered ONCE per class by the caller; only the
+        dense-parent materialize path runs without them."""
+        store = self.store
+        if crep == "bitmap" and store.rep_of(ph) == tidlist.REP_BITMAP:
+            return (store.materialize(ph, e, shard=shard),
+                    self.n_w * 4, False)
+        cov = min(store.cover_of(ph), store.cover_of(e))
+        read = len(ptids) * 4 * 2      # bits gather + payload carve
+        if crep == "bitmap":
+            # under "auto" a dense child of a sparse parent can't win
+            # the cost model (child support ≤ parent support), so this
+            # is the forced-densify corner only
+            ch = store.push(tidlist.tids_to_bitmap(ptids[bits], self.n_w),
+                            shard=shard, cover=cov)
+            return ch, read + self.n_w * 4, False
+        if crep == "tidlist":
+            ch = store.push_tids(ptids[bits], shard=shard, cover=cov)
+        else:
+            ch = store.push_diffset(ptids[~bits], anchor=ph, support=csup,
+                                    shard=shard, cover=cov)
+        return ch, read, True
+
+    def class_task(self, prefix: Itemset, ph: int,
+                   exts: Tuple[int, ...], psup: Tuple[int, ...],
+                   own_support: int, owned: bool,
+                   ptids_hint=None, sub=None) -> None:
+        store, sched = self.store, self.sched
+        min_support, model = self.min_support, self.model
+        children: List[Tuple[Itemset, int, Tuple[int, ...],
+                             Tuple[int, ...], int, object, object]] = []
+        try:
+            k = len(prefix) + 1                 # size of swept itemsets
+            shard = sched.worker_device()
+            st = sched.worker_stats()
+            disp = self.dispatcher
+            # host backends mine sparse subtrees projected; a projected
+            # child is a positional tid mask whose sweep reads its bools
+            # however it was notionally encoded, so a diffset's smaller
+            # size buys nothing there and the model must not price it
+            host = disp.backend.host_parallel
+            if sub is not None:
+                # projected class: ``sub`` is the subtree root's bit
+                # matrix, row-selected to this class's extensions and
+                # column-sliced to its tid positions — no arena row
+                # exists for P at all
+                rep = None
+                sparse = True
+                is_diff = False
+                payload = sub.shape[1]
+                # support of P+e is a masked row sum
+                counts = sub.sum(axis=1, dtype=np.int64)
+                pbits = sub
+                supports = [(e, int(s)) for e, s in zip(exts, counts)]
+            else:
+                rep = store.rep_of(ph)
+                sparse = rep != tidlist.REP_BITMAP
+                payload = len(store.tids_of(ph)) if sparse else 0
+                is_diff = rep == tidlist.REP_DIFFSET
+                st.sweeps_submitted += 1
+                # pbits: the sweep's own [E, S] payload∩ext matrix
+                counts, pbits = disp.sweep_bits(ph, exts)
+                if is_diff:
+                    # dEclat arithmetic: the backend counted |diff ∩ e|;
+                    # the parent's sibling supports turn it into support
+                    supports = [(e, psup[j] - int(s)) for j, (e, s)
+                                in enumerate(zip(exts, counts))]
+                else:
+                    supports = [(e, int(s)) for e, s in zip(exts, counts)]
+            if model is not None and supports:
+                # sampled EWMA: the gauge steers granularity detach
+                # decisions, not per-child picks — every 4th class is
+                # plenty of signal and trims the per-class Python floor
+                self._obs += 1
+                if (self._obs & 3) == 0:
+                    model.observe([s for _, s in supports])
+            freq = [(e, s) for e, s in supports if s >= min_support]
+            sibs = [e for e, _ in freq]         # ascending (exts sorted)
+            child_bytes = 0
+            child_sparse_bytes = 0
+            if k < self.max_k and len(freq) > 1:
+                # pick every child's representation first, so the carve
+                # work (P's explicit tid set + its membership bits in
+                # each child ext) resolves and gathers ONCE per class
+                plan = [(i, e, csup,
+                         "bitmap" if model is None
+                         else model.pick_child_rep(own_support, csup,
+                                                   allow_diffset=not host))
+                        for i, (e, csup) in enumerate(freq[:-1])]
+                # host backends mine sparse subtrees PROJECTED: the
+                # sweep's bit matrix, row-selected to the frequent
+                # siblings, IS the dEclat recursion state. The kernel
+                # backend keeps arena handoffs (the device owns the
+                # rows; projection would drag every class to the host).
+                proj = host and (sparse
+                                 or any(p[3] != "bitmap" for p in plan))
+                fmat = None   # frequent-sibling bits over P's tid set
+                ptids = None  # P's tid set, resolved at most once
+                bcol: Dict[int, int] = {}   # ext -> row in bit matrix
+                bmat = None
+                if proj:
+                    if pbits is not None and not is_diff:
+                        eidx = {e: j for j, e in enumerate(exts)}
+                        fmat = pbits[[eidx[f] for f in sibs]]
+                    else:
+                        ptids = self._class_tids(ph, ptids_hint)
+                        fmat = store.gather_bits_rows(ptids, sibs)
+                        child_bytes += len(ptids) * 4
+                elif not host:
+                    carve = [p for p in plan
+                             if p[3] != "bitmap"
+                             or rep != tidlist.REP_BITMAP]
+                    if carve:
+                        ptids = self._class_tids(ph, ptids_hint)
+                        if is_diff:
+                            pbits = None  # sweep bits were over diff
+                        if pbits is not None:
+                            eidx = {e: j for j, e in enumerate(exts)}
+                            bcol = {e: eidx[e] for _, e, _, _ in carve}
+                            bmat = pbits
+                        else:
+                            ce = [e for _, e, _, _ in carve]
+                            bmat = store.gather_bits_rows(ptids, ce)
+                            bcol = {e: j for j, e in enumerate(ce)}
+                for i, e, csup, crep in plan:
+                    if proj and (crep != "bitmap" or sparse):
+                        m = fmat[i]
+                        csub = fmat[i + 1:len(freq)][:, m]
+                        read = csub.nbytes + m.nbytes
+                        child_bytes += read
+                        child_sparse_bytes += read
+                        children.append((prefix + (e,), -1,
+                                         tuple(sibs[i + 1:]),
+                                         tuple(s for _, s in freq[i + 1:]),
+                                         csup, None, csub))
+                        continue
+                    ch, read, ch_sparse = self._make_child(
+                        ph, e, csup, crep, shard, ptids,
+                        bmat[bcol[e]] if e in bcol else None)
+                    child_bytes += read
+                    if ch_sparse:
+                        child_sparse_bytes += read
+                    children.append((prefix + (e,), ch,
+                                     tuple(sibs[i + 1:]),
+                                     tuple(s for _, s in freq[i + 1:]),
+                                     csup,
+                                     ptids if crep == "diffset" else None,
+                                     None))
+            rows = class_rows_touched(len(exts), len(children))
+            st.rows_touched += rows
+            if sparse:
+                # gather-intersect passes: the payload once per extension
+                # (plus once for itself), never W words — plus the
+                # measured child-handoff reads. Projected classes read
+                # exactly their bit matrix.
+                sb = (sub.nbytes if sub is not None
+                      else payload * 4 * (1 + len(exts)))
+                st.bytes_swept += sb + child_bytes
+                st.sparse_bytes_swept += sb + child_sparse_bytes
+                st.sparse_sweeps += 1
+            else:
+                st.bytes_swept += rows_to_bytes(rows, self.n_w)
+                st.sparse_bytes_swept += child_sparse_bytes
+                st.dense_sweeps += 1
+            with self.lock:
+                metrics = self.metrics
+                metrics.buckets += 1
+                metrics.candidates += len(exts)
+                metrics.levels = max(metrics.levels, k - 1)
+                metrics.frequent += len(freq)
+                for e, s in freq:
+                    self.result[prefix + (e,)] = s
+            spawned = []
+            while children:
+                (cprefix, ch, csibs, cpsup, csup, chint,
+                 csub) = children[0]
+                spawned.append(self.spawn(cprefix, ch, csibs, cpsup, csup,
+                                          csub is None, chint, csub))
+                children.pop(0)       # ownership moved to the child task
+            if spawned:
+                with self.lock:
+                    self.all_tasks.extend(spawned)
+        except BaseException:
+            # refcount hygiene on error: handoff rows whose child tasks
+            # never spawned must release here or they leak for the rest
+            # of the run (projected children own nothing — their state
+            # is the sliced bit matrix)
+            for _, ch, _, _, _, _, csub in children:
+                if csub is None:
+                    store.release(ch)
+            raise
+        finally:
+            if owned:
+                store.release(ph)
+
+    def spawn(self, prefix: Itemset, ph: int, exts, psup,
+              own_support: int, owned: bool, ptids_hint=None, sub=None):
+        return self.sched.spawn(
+            self.class_task, prefix, ph, exts, psup, own_support, owned,
+            ptids_hint, sub, attr=(itemset_hash(prefix), prefix),
+            depth=len(prefix), handles=(ph,) if owned else ())
+
+    def spawn_roots(self, frequent, result) -> None:
+        """One class per root item (the depth-first engine). Root
+        classes hand the pinned base row's handle (== item id — nothing
+        materialized, nothing retained); their sibling supports are the
+        level-1 supports."""
+        if self.max_k < 2 or len(frequent) < 2:
+            return
+        items = [p[0] for p in frequent]        # sorted singleton items
+        sup = {p[0]: result[p] for p in frequent}
+        for i, it in enumerate(items[:-1]):
+            sibs = tuple(items[i + 1:])
+            t = self.spawn((it,), it, sibs, tuple(sup[e] for e in sibs),
+                           sup[it], False)
+            with self.lock:   # already-running roots append concurrently
+                self.all_tasks.append(t)
+
+    def raise_errors(self) -> None:
+        with self.lock:
+            tasks = list(self.all_tasks)
+        _raise_task_errors(tasks)
+
+
+def _mine_depth_first(store, dispatcher, min_support, max_k, sched,
+                      metrics, result, frequent, model=None):
+    """Barrier-free engine: see :class:`_ClassMiner`."""
+    miner = _ClassMiner(store, dispatcher, min_support, max_k, sched,
+                        metrics, result, model=model)
+    miner.spawn_roots(frequent, result)
+    sched.wait_all()                            # the ONLY wait
+    miner.raise_errors()
 
 
 def mine_serial(bitmaps: np.ndarray, min_support: int, max_k: int = 8

@@ -11,7 +11,9 @@ bitmaps, producing E support counts in one call. Two pieces carry it:
       and block on a future; one dispatcher thread coalesces pending
       requests into a padded batch and launches one kernel per
       representation for all of them. Only the dispatcher thread touches
-      the device.
+      the device. Depth-first class sweeps (``sweep_bits``) take the
+      same queue on the kernel backend and run inline on the calling
+      worker on the host backend.
 
 Backends implement the same batched API:
 
@@ -30,7 +32,7 @@ import threading
 import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,9 +71,12 @@ class SweepRequest:
 class JoinBackend:
     """Batched executor: ``sweep_many(arena, requests)`` returns one
     int64 counts array per request (ragged — each sized to the
-    request's own extension count)."""
+    request's own extension count). ``host_parallel`` backends run on
+    the host with the GIL released, so a worker may call them on its
+    own thread; the others run only on the dispatcher thread."""
 
     name: str = "base"
+    host_parallel: bool = False
 
     def sweep_many(self, arena: BitmapArena,
                    requests: Sequence[SweepRequest]) -> List[np.ndarray]:
@@ -88,6 +93,7 @@ class NumpyBackend(JoinBackend):
     popcount); sparse requests gather one word per tid."""
 
     name = "numpy"
+    host_parallel = True
     # bound on a bin pass's [B, E, W] AND temporary (slices B)
     PASS_BYTES = 4 << 20
 
@@ -96,7 +102,7 @@ class NumpyBackend(JoinBackend):
         dense: List[int] = []
         for i, r in enumerate(requests):
             if r.is_sparse(arena):
-                totals[i] = self._sweep_sparse(arena, r)
+                totals[i] = self.sweep_sparse_bits(arena, r)[0]
             else:
                 dense.append(i)
         rows = arena.rows_view()
@@ -117,19 +123,16 @@ class NumpyBackend(JoinBackend):
         return totals
 
     @staticmethod
-    def _sweep_sparse(arena, r):
-        """Sparse-prefix sweep: for each extension, gather the ext word
-        at every prefix tid and test one bit — an [E, S] word block, no
-        [E, W] dense gather copy."""
-        out = np.zeros(len(r.ext_handles), np.int64)
-        tids = arena.tids_of(r.prefix_handle)
-        if not len(tids) or not len(r.ext_handles) or not arena.n_words:
-            return out
-        t = tids.astype(np.int64)
-        words = arena.rows_view()[np.ix_(list(r.ext_handles), t >> 5)]
-        out += ((words >> (t & 31).astype(np.uint32)[None, :])
-                & np.uint32(1)).sum(axis=1, dtype=np.int64)
-        return out
+    def sweep_sparse_bits(arena, r):
+        """Sparse-prefix sweep: gather the ext word at every prefix tid
+        and test one bit — an [E, S] bit matrix, no [E, W] dense gather
+        copy. Returns ``(counts, bits)``, the bit columns aligned with
+        the prefix's sorted payload: a depth-first class task counts
+        with it and carves its children from it without gathering
+        again."""
+        bits = arena.gather_bits_rows(arena.tids_of(r.prefix_handle),
+                                      r.ext_handles)
+        return bits.sum(axis=1, dtype=np.int64), bits
 
     @staticmethod
     def _sweep_one(rows, r):
@@ -284,6 +287,10 @@ class SweepDispatcher:
         self._stop = False
         self.flushes = 0
         self.requests = 0
+        # dispatcher-thread flushes only (sweep_bits' inline sweeps bill
+        # themselves as flushes but never coalesce with anything)
+        self.queue_flushes = 0
+        self.queue_requests = 0
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name=f"sweep-dispatcher-{shard}")
         self._thread.start()
@@ -310,18 +317,47 @@ class SweepDispatcher:
         tr.span("sweep", t0, cat="sweep", args={"ext": len(ext_handles)})
         return counts
 
+    def sweep_bits(self, prefix_handle: int, ext_handles: Sequence[int]
+                   ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """Depth-first class sweep: ``(counts, bits)``, where ``bits`` is
+        the [E, S] payload∩ext matrix of the same gather the counts came
+        from (sparse prefixes on host-parallel backends; None otherwise).
+
+        Host-parallel backends run inline on the calling thread: one
+        class sweep is one vectorized pass, cheaper than the enqueue →
+        wakeup → future round trip. The kernel backend keeps the batched
+        queue, so only the dispatcher thread touches the device, and
+        returns no bits. An inline sweep is billed as a 1-request flush,
+        so ``flushes × occupancy == requests`` stays exact."""
+        if not self.backend.host_parallel:
+            return self.sweep(prefix_handle, ext_handles), None
+        req = SweepRequest(int(prefix_handle), tuple(ext_handles))
+        with self._cv:
+            if self._stop:
+                raise RuntimeError("dispatcher is stopped")
+            self.flushes += 1
+            self.requests += 1
+        t0 = time.perf_counter()
+        if req.is_sparse(self.arena):
+            out = self.backend.sweep_sparse_bits(self.arena, req)
+        else:
+            out = self.backend.sweep_many(self.arena, [req])[0], None
+        with self._cv:
+            self.sweep_s += time.perf_counter() - t0
+        return out
+
     @property
     def batch_occupancy(self) -> float:
         return self.requests / self.flushes if self.flushes else 0.0
 
     def stats(self) -> Dict[str, float]:
         """This dispatcher's gauges on the ``repro_torch.obs.schema``
-        device schema. Every flush here is a queue flush."""
+        device schema."""
         return obs_schema.device_stats(
             {"device": self.shard, "flushes": self.flushes,
              "sweep_requests": self.requests,
-             "queue_flushes": self.flushes,
-             "queue_requests": self.requests,
+             "queue_flushes": self.queue_flushes,
+             "queue_requests": self.queue_requests,
              "sweep_s": self.sweep_s})
 
     # -------------------------------------------------------------- loop --
@@ -348,6 +384,8 @@ class SweepDispatcher:
                 del self._pending[:self.max_batch]
                 self.flushes += 1
                 self.requests += len(batch)
+                self.queue_flushes += 1
+                self.queue_requests += len(batch)
             try:
                 t0 = time.perf_counter()
                 results = self.backend.sweep_many(self.arena, batch)

@@ -31,6 +31,17 @@ def pow2(n: int, lo: int = 1) -> int:
     return p
 
 
+def resolve_device(device: "torch.device | str | None") -> torch.device:
+    """``None`` means the CUDA card. Asking for CUDA on a host without
+    one raises at once: the CPU runs only when the caller names it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on "
+            "the host")
+    return dev
+
+
 def to_device_words(bitmaps: np.ndarray,
                     device: "torch.device | str") -> torch.Tensor:
     """[..., W] uint32 bitmaps -> the same words as an int32 tensor on
@@ -164,6 +175,16 @@ def tids_to_bitmap(tids: np.ndarray, n_words_: int) -> np.ndarray:
     return out
 
 
+def gather_bits(tids: np.ndarray, ext_words: np.ndarray) -> np.ndarray:
+    """Bit test of ``ext_words`` at each tid -> [len(tids)] bool: the
+    sparse sweep primitive, O(|tids|) words whatever the row width."""
+    if len(tids) == 0:
+        return np.zeros(0, bool)
+    t = np.asarray(tids, np.uint32)
+    return ((ext_words[t >> np.uint32(5)] >> (t & np.uint32(31)))
+            & np.uint32(1)).astype(bool)
+
+
 def gather_count(tids: np.ndarray, ext_words: np.ndarray) -> int:
     """|tids ∩ ext| for one sparse row against one word-column."""
     if len(tids) == 0:
@@ -192,10 +213,11 @@ class BitmapArena:
     """Append-only ``[N, W]`` uint32 row store with integer handles.
 
     Every bitmap the mining engine touches lives here: the pinned item
-    bitmaps loaded once by :meth:`from_bitmaps` (handle == item id) and
-    the cached prefix intersections. Tasks pass *handles* around, so the
-    sweep dispatcher can batch many workers' requests into one kernel
-    launch without re-marshalling bitmap payloads.
+    bitmaps loaded once by :meth:`from_bitmaps` (handle == item id), the
+    cached prefix intersections and the depth-first engine's child
+    handoff rows. Tasks pass *handles* around, so the sweep dispatcher
+    can batch many workers' requests into one kernel launch without
+    re-marshalling bitmap payloads.
 
     Rows are refcounted: :meth:`push` returns a handle with refcount 1,
     :meth:`retain`/:meth:`release` adjust it, and a row whose count
@@ -211,7 +233,14 @@ class BitmapArena:
     ``device``, created at the first call and kept in sync
     incrementally: only rows appended or recycled since the last sync
     cross host→device, and their payload bytes accumulate in
-    ``h2d_bytes``. Host-only backends never call it.
+    ``h2d_bytes``. Host-only backends never call it. ``device=None``
+    means the CUDA card and raises ``RuntimeError`` when there is none;
+    the mirror lives on the CPU only when the caller passes ``"cpu"``.
+
+    The arena holds one shard and one segment. The row-creating calls
+    take the reference's ``shard=`` and ``cover=`` arguments so the
+    engines call both arenas alike, and accept only the single-segment
+    values (``shard=0``, ``cover`` None or 1).
 
     Thread-safe: workers push/release concurrently; the mirror is touched
     only by the dispatcher thread. Growth reallocates the host store, but
@@ -221,9 +250,10 @@ class BitmapArena:
 
     GROW = 2                      # capacity doubling factor
 
-    def __init__(self, n_words_: int, device: "torch.device | str" = "cpu",
+    def __init__(self, n_words_: int,
+                 device: "torch.device | str | None" = None,
                  capacity: int = 64):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         cap = max(capacity, 1)
         self._n_words = n_words_
         self._store = np.zeros((cap, n_words_), np.uint32)
@@ -270,7 +300,8 @@ class BitmapArena:
     # ------------------------------------------------------------- load --
     @classmethod
     def from_bitmaps(cls, bitmaps: np.ndarray,
-                     device: "torch.device | str" = "cpu") -> "BitmapArena":
+                     device: "torch.device | str | None" = None
+                     ) -> "BitmapArena":
         """Load packed item bitmaps as the pinned base rows (handle ==
         item id). One copy, once."""
         n, w = bitmaps.shape
@@ -305,8 +336,17 @@ class BitmapArena:
         self.live_extra += 1
         self.peak_live_extra = max(self.peak_live_extra, self.live_extra)
 
-    def push(self, row: np.ndarray) -> int:
+    @staticmethod
+    def _one_segment(shard: int, cover: Optional[int]) -> None:
+        if shard != 0 or cover not in (None, 1):
+            raise ValueError(
+                "this arena holds one shard and one segment; got "
+                f"shard={shard}, cover={cover}")
+
+    def push(self, row: np.ndarray, shard: int = 0,
+             cover: Optional[int] = None) -> int:
         """Append (or recycle a slot for) one bitmap row; refcount 1."""
+        self._one_segment(shard, cover)
         with self._lock:
             slot = self._alloc_slot()
             self._store[slot] = row
@@ -315,9 +355,28 @@ class BitmapArena:
             self._bump_live()
             return slot
 
+    def materialize(self, prefix_handle: int, ext_handle: int,
+                    shard: int = 0) -> int:
+        """``row(prefix) ∧ row(ext)`` written in place into a fresh slot
+        — the depth-first parent→child handoff, with no floating
+        temporary. The device mirror picks the row up at its next
+        sync, billed like any pushed row."""
+        self._one_segment(shard, None)
+        with self._lock:
+            slot = self._alloc_slot()
+            store = self._store
+            np.bitwise_and(store[prefix_handle], store[ext_handle],
+                           out=store[slot])
+            self._refs[slot] = 1
+            self._rep[slot] = REP_BITMAP
+            self._bump_live()
+            return slot
+
     # ------------------------------------------------- sparse lifecycle --
     def _push_sparse(self, rep: int, tids: np.ndarray, support: int,
+                     shard: int, cover: Optional[int],
                      anchor: Optional[int] = None) -> int:
+        self._one_segment(shard, cover)
         t = np.ascontiguousarray(tids, dtype=np.uint32)
         with self._lock:
             slot = self._alloc_slot()
@@ -337,17 +396,20 @@ class BitmapArena:
             self._bump_live()
             return slot
 
-    def push_tids(self, tids: np.ndarray) -> int:
+    def push_tids(self, tids: np.ndarray, shard: int = 0,
+                  cover: Optional[int] = None) -> int:
         """Append one sparse row as a sorted uint32 tid-list; refcount 1."""
-        return self._push_sparse(REP_TIDLIST, tids, len(tids))
+        return self._push_sparse(REP_TIDLIST, tids, len(tids), shard,
+                                 cover)
 
-    def push_diffset(self, diff: np.ndarray, anchor: int,
-                     support: int) -> int:
+    def push_diffset(self, diff: np.ndarray, anchor: int, support: int,
+                     shard: int = 0, cover: Optional[int] = None) -> int:
         """Append one dEclat diffset row: ``diff`` holds the tids of the
         *anchor* (parent prefix) row NOT in this row, so this row's tid
         set is ``tids(anchor) \\ diff`` and its support is ``support``.
         The anchor is retained until this row is released."""
-        return self._push_sparse(REP_DIFFSET, diff, support, anchor=anchor)
+        return self._push_sparse(REP_DIFFSET, diff, support, shard, cover,
+                                 anchor=anchor)
 
     def sparsify_push(self, row: np.ndarray) -> int:
         """Scan a dense word-row into a tid-list row (billed sparsify
@@ -363,15 +425,55 @@ class BitmapArena:
         """REP_BITMAP / REP_TIDLIST / REP_DIFFSET tag of a row."""
         return int(self._rep[handle])
 
+    def cover_of(self, handle: int) -> int:
+        """Segments a row covers: always the one segment here."""
+        return 1
+
     def tids_of(self, handle: int) -> np.ndarray:
         """Raw sparse payload of a tid-list or diffset row (for a diffset
-        this is the *difference*, not the tid set)."""
+        this is the *difference*, not the tid set — see
+        :meth:`resolve_tids`)."""
         return self._sparse[handle]
+
+    def anchor_of(self, handle: int) -> Optional[int]:
+        """The parent row a diffset row is anchored on (None otherwise)."""
+        return self._anchor.get(handle)
 
     def sparse_support(self, handle: int) -> int:
         """Stored support of a sparse row (its tid count for a tid-list;
         anchor support minus difference size for a diffset)."""
         return self._ssupport[handle]
+
+    def resolve_tids(self, handle: int) -> np.ndarray:
+        """Explicit sorted tid set of ANY row. Tid-lists are returned
+        as is; diffsets reconstruct ``tids(anchor) \\ diff`` (walking the
+        anchor chain); bitmap rows are scanned — billed as a sparsify
+        conversion, since it turns W words into a tid array."""
+        rep = int(self._rep[handle])
+        if rep == REP_TIDLIST:
+            return self._sparse[handle]
+        if rep == REP_DIFFSET:
+            parent = self.resolve_tids(self._anchor[handle])
+            return sorted_difference(parent, self._sparse[handle])
+        tids = bitmap_to_tids(self._store[handle])
+        with self._lock:
+            self.sparsify_ops += 1
+            self.sparsify_bytes += self._n_words * 4
+        return tids
+
+    def gather_bits_rows(self, tids: np.ndarray,
+                         handles: Sequence[int]) -> np.ndarray:
+        """[len(handles), len(tids)] bool: bit test of each handle's
+        dense row at each tid, read from the host store — the class
+        task's batched child carve, one ``np.ix_`` gather for every
+        row at once."""
+        out = np.zeros((len(handles), len(tids)), bool)
+        if not len(tids) or not len(handles) or not self._n_words:
+            return out
+        t = np.asarray(tids).astype(np.int64)
+        w = self._store[np.ix_([int(h) for h in handles], t >> 5)]
+        out[:] = (w >> (t & 31).astype(np.uint32)[None, :]) & np.uint32(1)
+        return out
 
     def densify(self, handle: int) -> np.ndarray:
         """Dense word-column of ANY row; for sparse rows this is a billed

@@ -1,1 +1,2 @@
-from repro_torch.kernels.bitmap_join.ops import bitmap_join_many  # noqa: F401
+from repro_torch.kernels.bitmap_join.ops import (  # noqa: F401
+    bitmap_join, bitmap_join_many)

@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the ``bitmap_join_many`` kernel.
+"""Plain PyTorch versions of the ``bitmap_join`` and ``bitmap_join_many``
+kernels.
 
 Words are int32 tensors holding the uint32 bit patterns. This PyTorch
 build has no popcount op, and ``>>`` on int32 is arithmetic (it copies
@@ -30,3 +31,10 @@ def bitmap_join_many_ref(prefixes: torch.Tensor, exts: torch.Tensor
     ``counts[b, e] = Σ_w popcount(prefixes[b, w] & exts[b, e, w])``."""
     joined = exts & prefixes[:, None, :]
     return popcount32(joined).sum(dim=2, dtype=torch.int32)
+
+
+def bitmap_join_ref(prefix: torch.Tensor, exts: torch.Tensor) -> torch.Tensor:
+    """prefix [W] int32, exts [E, W] int32 -> counts [E] int32:
+    ``counts[e] = Σ_w popcount(prefix[w] & exts[e, w])``."""
+    joined = exts & prefix[None, :]
+    return popcount32(joined).sum(dim=1, dtype=torch.int32)

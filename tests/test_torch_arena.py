@@ -147,3 +147,110 @@ def test_mirror_h2d_billing_matches_reference():
     assert port.h2d_bytes > base.nbytes
     port.count_h2d(128)
     assert port.h2d_bytes == ref.h2d_bytes + 128
+
+
+# ----------------------------------------------------------- device rule
+def test_arena_without_device_raises_when_no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BitmapArena.from_bitmaps(words((3, 2)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BitmapArena(4)
+    assert BitmapArena(4, device="cpu").device == torch.device("cpu")
+
+
+def test_arena_holds_one_shard_and_one_segment():
+    arena = BitmapArena.from_bitmaps(words((3, 2)), device="cpu")
+    h = arena.push(words(2), shard=0, cover=1)
+    assert arena.cover_of(h) == arena.cover_of(0) == 1
+    with pytest.raises(ValueError, match="one shard and one segment"):
+        arena.push(words(2), shard=1)
+    with pytest.raises(ValueError, match="one shard and one segment"):
+        arena.push_tids(np.array([1, 5], np.uint32), cover=2)
+    with pytest.raises(ValueError, match="one shard and one segment"):
+        arena.materialize(0, 1, shard=1)
+
+
+# ------------------------------------------------------- class handoffs
+def test_class_handoffs_resolve_and_bill_like_reference():
+    """The depth-first engine's arena calls on both arenas: a
+    materialized row, a two-deep diffset chain resolved through its
+    anchors, batched carve gathers, and the cascade of releases — rows,
+    tid sets and every gauge agree."""
+    rows = words((6, 5))
+    arenas = (BitmapArena.from_bitmaps(rows, device="cpu"),
+              rtl.BitmapArena.from_bitmaps(rows, backing="numpy"))
+    t01 = ttl.bitmap_to_tids(rows[0] & rows[1])
+    t012 = ttl.bitmap_to_tids(rows[0] & rows[1] & rows[2])
+    t0123 = ttl.bitmap_to_tids(rows[0] & rows[1] & rows[2] & rows[3])
+    out = []
+    for a in arenas:
+        hm = a.materialize(0, 1)
+        ht = a.push_tids(t01)
+        hd1 = a.push_diffset(ttl.sorted_difference(t01, t012), anchor=ht,
+                             support=len(t012))
+        hd2 = a.push_diffset(ttl.sorted_difference(t012, t0123),
+                             anchor=hd1, support=len(t0123))
+        resolved = [a.resolve_tids(h).tolist()
+                    for h in (hm, ht, hd1, hd2)]
+        bits = a.gather_bits_rows(t012, [3, 4, hm])
+        gauges = [(a.live_extra, a.refcount(ht), a.refcount(hd1))]
+        a.release(hd2)                     # cascades one release to hd1
+        gauges.append((a.live_extra, a.refcount(ht), a.refcount(hd1)))
+        a.release(hd1)                     # ... and on to ht
+        a.release(ht)
+        a.release(hm)
+        gauges.append((a.live_extra, a.sparse_live, a.sparse_bytes_live))
+        out.append((a.row(hm).tolist(), resolved, bits.tolist(),
+                    a.anchor_of(hd2) == hd1, a.anchor_of(hm), gauges,
+                    a.sparsify_ops, a.sparsify_bytes, a.densify_ops,
+                    a.peak_live_extra))
+    assert out[0] == out[1]
+    row, resolved, bits = out[0][:3]
+    assert row == (rows[0] & rows[1]).tolist()
+    assert resolved == [t01.tolist(), t01.tolist(), t012.tolist(),
+                        t0123.tolist()]
+    assert out[0][6] == 1                  # the bitmap row's scan
+    assert out[0][5][-1] == (0, 0, 0)
+    assert np.array(bits).shape == (3, len(t012))
+
+
+def test_gather_bits_matches_reference():
+    x = words(7)
+    tids = np.sort(RNG.choice(32 * 7, size=30, replace=False)
+                   ).astype(np.uint32)
+    np.testing.assert_array_equal(ttl.gather_bits(tids, x),
+                                  rtl.gather_bits(tids, x))
+    assert ttl.gather_bits(tids[:0], x).shape == (0,)
+
+
+def test_materialized_rows_bill_h2d_like_reference():
+    """Short-lived materialized rows in recycled slots, synced between
+    steps: the mirror bills what the reference's mirror bills, and holds
+    each live row's words."""
+    base = words((8, 6))
+    port = BitmapArena.from_bitmaps(base, device="cpu")
+    ref = rtl.BitmapArena.from_bitmaps(base, backing="auto")
+    live = []
+    rng = np.random.default_rng(5)
+    for step in range(60):
+        if rng.random() < 0.55 or not live:
+            p, e = (int(v) for v in rng.integers(0, 8, size=2))
+            if live and rng.random() < 0.5:
+                p = live[int(rng.integers(len(live)))][0]
+            hp, hr = port.materialize(p, e), ref.materialize(p, e)
+            assert hp == hr
+            live.append((hp, hr))
+        else:
+            hp, hr = live.pop(int(rng.integers(len(live))))
+            port.release(hp)
+            ref.release(hr)
+        if step % 4 == 0:
+            mirror = port.device_rows()
+            ref.device_rows(0)
+            assert port.h2d_bytes == ref.h2d_bytes, step
+            for hp, _ in live:
+                np.testing.assert_array_equal(
+                    from_device_words(mirror[hp, :6]), port.row(hp))
+    assert port.h2d_bytes > base.nbytes
+    assert port.peak_live_extra == ref.peak_live_extra

@@ -1,8 +1,10 @@
-"""The slice end to end: the port's batch bucket mining against the
-reference engine on the same inputs — supports and every deterministic
-gauge — plus the device rule, the options a later slice covers, and the
-rule that the port imports neither JAX nor the reference package."""
+"""The port's batch mining end to end against the reference engine on
+the same inputs — supports and every deterministic gauge, at bucket,
+candidate, depth-first and auto granularity — plus the device rule, the
+options a later slice covers, and the rule that the port imports neither
+JAX nor the reference package."""
 import ast
+import itertools
 from pathlib import Path
 
 import numpy as np
@@ -12,7 +14,8 @@ import torch
 import repro_torch
 from repro.core import fpm as rfpm
 from repro_torch.core import fpm as tfpm
-from repro_torch.core.tidlist import pack_database
+from repro_torch.core import join_backend as tjb
+from repro_torch.core.tidlist import BitmapArena, pack_database
 from repro_torch.data import transactions as tt
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -91,6 +94,131 @@ def test_candidate_granularity_and_forced_representations(rep):
         assert gm.sparse_sweeps == 0 and not gm.rep_picks
 
 
+# ------------------------------------------------- depth-first and auto
+@pytest.mark.parametrize("granularity", ["depth-first", "auto"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_class_engines_on_kernel_backend_equal_reference(case,
+                                                         granularity):
+    """The arena handoff path (materialize / tid-list / diffset rows,
+    every class sweep a dispatcher request) against the reference's
+    pallas-interpret run: one worker fixes the schedule, so supports,
+    every gauge and the density model's picks agree exactly."""
+    profile, n_tx, support, max_k = CASES[case]
+    bm, counts, ms = cut(profile, n_tx, support)
+    got, gm = tfpm.mine(bm, ms, device="cpu", backend="torch",
+                        granularity=granularity, n_workers=1,
+                        max_k=max_k, item_counts=counts)
+    want, wm = rfpm.mine(bm, ms, backend="pallas-interpret",
+                         granularity=granularity, n_workers=1,
+                         max_k=max_k, item_counts=counts)
+    assert got == want
+    for g in GAUGES:
+        assert getattr(gm, g) == getattr(wm, g), g
+    assert gm.rep_picks == wm.rep_picks
+    if case == "retail":
+        assert gm.sparse_sweeps > 0 and gm.sparse_rows > 0
+
+
+@pytest.mark.parametrize("granularity", ["depth-first", "auto"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_class_engines_on_numpy_backend_equal_reference(case, granularity):
+    """The host backend's projected sparse subtrees: class sweeps run
+    inline on the worker, and depth-first pushes no sparse arena row."""
+    profile, n_tx, support, max_k = CASES[case]
+    bm, counts, ms = cut(profile, n_tx, support)
+    got, gm = tfpm.mine(bm, ms, device="cpu", backend="numpy",
+                        granularity=granularity, n_workers=1,
+                        max_k=max_k, item_counts=counts)
+    want, wm = rfpm.mine(bm, ms, backend="numpy", granularity=granularity,
+                         n_workers=1, max_k=max_k, item_counts=counts)
+    assert got == want
+    for g in GAUGES:
+        assert getattr(gm, g) == getattr(wm, g), g
+    assert gm.rep_picks == wm.rep_picks
+    if granularity == "depth-first":
+        assert gm.sparse_rows == 0
+    if case == "retail":
+        assert gm.sparse_sweeps > 0
+
+
+def rand_db(n_tx, n_items, lo, hi, seed=0):
+    rng = np.random.default_rng(seed)
+    return [list(rng.choice(n_items, size=rng.integers(lo, hi),
+                            replace=False)) for _ in range(n_tx)]
+
+
+@pytest.mark.parametrize("backend", ["torch", "numpy"])
+@pytest.mark.parametrize("granularity,representation", list(
+    itertools.product(("bucket", "depth-first", "auto"),
+                      ("bitmap", "sparse", "auto"))))
+def test_granularity_representation_matrix_equals_serial(
+        granularity, representation, backend):
+    """Every granularity × representation cell mines the frequent set of
+    ``mine_serial`` at 3 workers; the database reaches k=4, so class
+    tasks hand rows down."""
+    db = rand_db(600, n_items=12, lo=3, hi=9)
+    bm, counts = pack_database(db, 12, return_counts=True)
+    want = tfpm.mine_serial(bm, 40, max_k=5)
+    assert max(len(c) for c in want) >= 4
+    got, met = tfpm.mine(bm, 40, device="cpu", backend=backend,
+                         n_workers=3, max_k=5, granularity=granularity,
+                         representation=representation, item_counts=counts)
+    assert got == want
+    if representation == "bitmap":
+        assert met.sparse_sweeps == 0 and not met.rep_picks
+    if representation == "sparse":
+        assert met.sparse_sweeps > 0 and met.sparse_bytes_swept > 0
+    assert met.flushes * met.batch_occupancy == pytest.approx(
+        sum(d["sweep_requests"] for d in met.per_device))
+
+
+@pytest.mark.parametrize("backend", ["torch", "numpy"])
+def test_depth_first_handoff_makes_cache_vestigial(backend):
+    bm, counts, ms = cut("retail", 1000, 0.03)
+    got, met = tfpm.mine(bm, ms, device="cpu", backend=backend,
+                         n_workers=3, max_k=4, granularity="depth-first",
+                         item_counts=counts)
+    assert got == tfpm.mine_serial(bm, ms, max_k=4)
+    assert met.cache_hits == met.cache_misses == 0
+    assert met.peak_retained_bitmaps > 0 and met.peak_bytes_retained > 0
+    assert met.buckets == met.scheduler["tasks_run"]
+
+
+def _child_bomb(base):
+    """A backend that fails every flush holding a child class's sweep:
+    child classes are exactly the requests whose prefix is a handoff
+    row (handle >= n_base)."""
+    class ChildBomb(base):
+        def sweep_many(self, arena, requests):
+            if any(r.prefix_handle >= arena.n_base for r in requests):
+                raise RuntimeError("child boom")
+            return super().sweep_many(arena, requests)
+    return ChildBomb()
+
+
+@pytest.mark.parametrize("granularity", ["depth-first", "auto"])
+@pytest.mark.parametrize("backend", [tjb.TorchBackend, tjb.NumpyBackend])
+def test_child_task_error_surfaces_and_releases_every_row(
+        monkeypatch, backend, granularity):
+    """A child class's error reaches the caller instead of deadlocking
+    the terminal wait, and no handoff row leaks: after the run closes
+    the arena holds no row beyond the pinned items."""
+    monkeypatch.setattr(tfpm, "resolve_backend",
+                        lambda spec: _child_bomb(backend))
+    bm, counts, ms = cut("mushroom", 1200, 0.25)
+    store = BitmapArena.from_bitmaps(bm, device="cpu")
+    result, frequent = tfpm._level1(bm, ms, counts=counts)
+    run = tfpm.MiningRun(store, policy="clustered", n_workers=3,
+                         granularity=granularity, cache_size=32,
+                         item_counts=counts)
+    with pytest.raises(RuntimeError, match="child boom"):
+        try:
+            tfpm.mine_more(run, ms, 4, result, frequent)
+        finally:
+            run.close()
+    assert store.live_extra == 0 and store.peak_live_extra > 0
+
+
 def test_mine_serial_equals_reference():
     bm, _, ms = cut("chess", 600, 0.7)
     assert tfpm.mine_serial(bm, ms, max_k=4) == \
@@ -108,7 +236,6 @@ def test_mine_without_device_raises_when_no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"granularity": "depth-first"}, {"granularity": "auto"},
     {"mesh": 2}, {"hosts": 2}, {"trace": object()}])
 def test_later_slices_raise_not_implemented(kwargs):
     with pytest.raises(NotImplementedError):
@@ -144,7 +271,7 @@ def _imported_roots(path):
 
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("*.py"))]
     assert len(files) > 10
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "repro"}

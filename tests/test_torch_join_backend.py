@@ -185,3 +185,66 @@ def test_dispatcher_submit_after_stop_raises():
     disp.stop()
     with pytest.raises(RuntimeError, match="stopped"):
         disp.submit(0, (1,))
+
+
+# ------------------------------------------------------------ sweep_bits
+def test_sweep_bits_inline_on_numpy_backend_matches_reference():
+    """A sparse prefix on the host backend: (counts, bits) from one
+    gather on the calling thread, equal to the reference dispatcher's,
+    billed as one 1-request flush that never went through the queue."""
+    rows = rand_rows(12, 40)
+    port, pht, phd = mixed_arena(rows, BitmapArena, device="cpu")
+    ref, rht, rhd = mixed_arena(rows, rtl.BitmapArena, backing="numpy")
+    pd = jb.SweepDispatcher(port, jb.NumpyBackend(), n_clients=1)
+    rd = rjb.SweepDispatcher(ref, rjb.NumpyBackend(), n_clients=1)
+    try:
+        for h in (pht, phd, 2):
+            counts, bits = pd.sweep_bits(h, (3, 4, 5))
+            want, wbits = rd.sweep_bits(h, (3, 4, 5))
+            np.testing.assert_array_equal(counts, want)
+            assert counts.dtype == np.int64
+            if h == 2:                     # dense prefix: no bit matrix
+                assert bits is None and wbits is None
+                continue
+            np.testing.assert_array_equal(bits, wbits)
+            assert bits.shape == (3, len(port.tids_of(h)))
+            np.testing.assert_array_equal(bits.sum(axis=1), counts)
+        np.testing.assert_array_equal(
+            pd.sweep_bits(pht, (3, 4, 5))[0],
+            naive_counts(rows[0] & rows[1], rows[3:6]))
+        assert (pd.flushes, pd.requests) == (4, 4)
+        st = pd.stats()
+        assert st["queue_flushes"] == 0 and st["batch_occupancy"] == 1.0
+        assert st == {**rd.stats(), "flushes": 4, "sweep_requests": 4,
+                      "batch_occupancy": 1.0, "sweep_s": st["sweep_s"]}
+    finally:
+        pd.stop()
+        rd.stop()
+
+
+def test_sweep_bits_on_torch_backend_takes_the_queue():
+    rows = rand_rows(12, 40)
+    arena, ht, hd = mixed_arena(rows, BitmapArena, device="cpu")
+    disp = jb.SweepDispatcher(arena, jb.TorchBackend(), n_clients=1)
+    try:
+        counts, bits = disp.sweep_bits(ht, (3, 4, 5))
+        assert bits is None
+        np.testing.assert_array_equal(
+            counts, naive_counts(rows[0] & rows[1], rows[3:6]))
+        counts, bits = disp.sweep_bits(0, (1, 2))
+        assert bits is None
+        np.testing.assert_array_equal(counts,
+                                      naive_counts(rows[0], rows[1:3]))
+        st = disp.stats()
+        assert st["flushes"] == st["queue_flushes"] == 2
+        assert st["sweep_requests"] == st["queue_requests"] == 2
+    finally:
+        disp.stop()
+
+
+def test_sweep_bits_after_stop_raises():
+    arena = BitmapArena.from_bitmaps(rand_rows(2, 2), device="cpu")
+    disp = jb.SweepDispatcher(arena, jb.NumpyBackend(), n_clients=1)
+    disp.stop()
+    with pytest.raises(RuntimeError, match="stopped"):
+        disp.sweep_bits(0, (1,))

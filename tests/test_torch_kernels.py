@@ -9,9 +9,12 @@ import pytest
 import torch
 from _hyp import given, settings, st
 
-from repro.kernels.bitmap_join.kernel import bitmap_join_many_kernel
+from repro.kernels.bitmap_join.kernel import (bitmap_join_kernel,
+                                              bitmap_join_many_kernel)
+from repro.kernels.bitmap_join.ops import bitmap_join as r_single_ops
 from repro.kernels.bitmap_join.ops import bitmap_join_many as r_join_ops
 from repro.kernels.bitmap_join.ref import bitmap_join_many_ref as r_join_ref
+from repro.kernels.bitmap_join.ref import bitmap_join_ref as r_single_ref
 from repro.kernels.gather_intersect.kernel import (
     gather_intersect_many_kernel)
 from repro.kernels.gather_intersect.ops import (
@@ -21,7 +24,7 @@ from repro.kernels.gather_intersect.ref import (
 from repro_torch.core.tidlist import to_device_words
 from repro_torch.kernels.bitmap_join import ops as bj
 from repro_torch.kernels.bitmap_join.ref import (bitmap_join_many_ref,
-                                                 popcount32)
+                                                 bitmap_join_ref, popcount32)
 from repro_torch.kernels.gather_intersect import ops as gi
 from repro_torch.kernels.gather_intersect.ref import (
     gather_intersect_many_ref)
@@ -101,6 +104,63 @@ def test_property_bitmap_join_many_plain(b, e, w):
     np.testing.assert_array_equal(
         bitmap_join_many_ref(t32(p), t32(x)).numpy(),
         np.asarray(r_join_ref(jnp.asarray(p), jnp.asarray(x))))
+
+
+# ----------------------------------------------------------- bitmap_join
+@pytest.mark.parametrize("e,w", [(1, 1), (7, 33), (256, 512), (300, 700),
+                                 (513, 1025)])
+def test_bitmap_join_plain_and_wrapper_match_reference_kernel(e, w):
+    """The reference's kernel test shapes; the first words of the prefix
+    and of the last extension row are bit-31 and edge patterns."""
+    p, x = words(w), words((e, w))
+    p[:min(w, len(SPECIAL))] = SPECIAL[:w]
+    x[-1, :min(w, len(SPECIAL))] = SPECIAL[::-1][:w]
+    want = np.asarray(bitmap_join_kernel(jnp.asarray(p), jnp.asarray(x),
+                                         interpret=True))
+    np.testing.assert_array_equal(
+        want, np.asarray(r_single_ref(jnp.asarray(p), jnp.asarray(x))))
+    n0 = bj.single_launches
+    for got in (bitmap_join_ref(t32(p), t32(x)),
+                bj.bitmap_join(t32(p), t32(x))):
+        assert got.dtype == torch.int32 and got.shape == (e,)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert bj.single_launches == n0
+
+
+def test_bitmap_join_all_bit31_words_and_empty_shapes():
+    ones = np.full((3, 40), 0xFFFFFFFF, np.uint32)
+    got = bj.bitmap_join(t32(ones[0]), t32(ones))
+    np.testing.assert_array_equal(got.numpy(), [40 * 32] * 3)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(r_single_ops(jnp.asarray(ones[0]),
+                                             jnp.asarray(ones))))
+    n0 = bj.single_launches
+    empty_e = bj.bitmap_join(t32(words(5)), t32(words((0, 5))))
+    empty_w = bj.bitmap_join(t32(words(0)), t32(words((4, 0))))
+    assert empty_e.shape == (0,) and empty_w.tolist() == [0] * 4
+    assert empty_w.dtype == torch.int32
+    assert bj.single_launches == n0
+
+
+@settings(max_examples=10, deadline=None, database=None)
+@given(st.integers(1, 64), st.integers(1, 96))
+def test_property_bitmap_join_plain(e, w):
+    p, x = words(w), words((e, w))
+    np.testing.assert_array_equal(
+        bitmap_join_ref(t32(p), t32(x)).numpy(),
+        np.asarray(r_single_ref(jnp.asarray(p), jnp.asarray(x))))
+
+
+def test_bitmap_join_wrapper_rejects_bad_inputs():
+    p, x = t32(words(4)), t32(words((3, 4)))
+    with pytest.raises(TypeError):
+        bj.bitmap_join(p.long(), x)
+    with pytest.raises(ValueError):
+        bj.bitmap_join(p[:3], x)
+    with pytest.raises(ValueError):
+        bj.bitmap_join(p, x[None])
+    with pytest.raises(ValueError, match="different devices"):
+        bj.bitmap_join(p.to("meta"), x)
 
 
 # ------------------------------------------------- gather_intersect_many
