@@ -10,8 +10,10 @@ Phases, each fatal on failure:
               csrc`` (one nvcc per source, in parallel) and print the
               card's name and power limit;
   2. parity   hold each kernel against its plain PyTorch version on the
-              card at the main path's shapes and edge cases (exact: the
-              counts are integers);
+              card at the main path's shapes and edge cases, the batched
+              kernels through both their indexed entries (row store +
+              indices, as the backend calls them) and their gathered
+              forms (exact: the counts are integers);
   3. main     batch bucket mining of T10I4D100K-size data (100,000
               transactions x 500 items, min support 0.5%) with
               ``representation="auto"``: supports must equal the host
@@ -31,9 +33,11 @@ Phases, each fatal on failure:
               against its plain version and the host count;
   8. profile  rerun phases 3-6 under torch.profiler for the device busy
               share and the top kernels by device time;
-  9. report   time each kernel, its plain version and the gathered-copy
-              step on inputs captured from phases 3, 5 and 7, and print
-              the kernels line and the final status line.
+  9. report   time each kernel and its plain version on inputs captured
+              from phases 3, 5 and 7; for the batched kernels also the
+              parent design on the same inputs (a gathered [B, E, W]
+              copy of mirror rows, then the gathered-form call) and the
+              launch floor; print the kernels line and the status line.
 
 The script imports nothing of JAX or of the reference package ``repro``.
 It exits non-zero without a result when no CUDA device is present.
@@ -48,7 +52,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the 32-bit
 # integer rate of the CUDA cores (half the 67 TFLOP/s fp32 rate).
@@ -96,7 +100,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, cold: bool = False):
     return sum(s.elapsed_time(e) for s, e in pairs) / iters, host_ms
 
 
-def device_profile(fn, top: int = 6):
+def device_profile(fn, top: int = 10):
     """Run ``fn`` under torch.profiler; returns (wall s, device busy s,
     top kernels by device time). Device busy is the sum of the device
     time of every CUDA kernel and copy the profiler saw."""
@@ -167,12 +171,15 @@ def phase_parity(dev):
     """Exact kernel-vs-plain parity; returns the worst error per kernel."""
     import numpy as np
     import torch
+
+    import _index_cases as cases
+    from repro_torch.core.tidlist import to_device_words
     from repro_torch.kernels.bitmap_join import ops as bj
-    from repro_torch.kernels.bitmap_join.ref import bitmap_join_many_ref
+    from repro_torch.kernels.bitmap_join.ref import (
+        bitmap_join_many_ref, bitmap_join_many_rows_ref, bitmap_join_ref)
     from repro_torch.kernels.gather_intersect import ops as gi
     from repro_torch.kernels.gather_intersect.ref import (
-        gather_intersect_many_ref)
-    from repro_torch.kernels.bitmap_join.ref import bitmap_join_ref
+        gather_intersect_many_ref, gather_intersect_many_rows_ref)
     rng = np.random.default_rng(0)
     worst = {"bitmap_join_many": 0, "gather_intersect_many": 0,
              "bitmap_join": 0}
@@ -230,6 +237,42 @@ def phase_parity(dev):
     held("gather_intersect_many", gi.gather_intersect_many(pad, x[:4]),
          gather_intersect_many_ref(pad, x[:4]), "all padding")
 
+    # the indexed entries as the backend calls them, on a row store:
+    # repeated handles, pad requests and lanes (-1), lens shorter than
+    # S, n_words below the stride, rows off the 16-byte grid, the
+    # phase-3 and phase-5 shapes over the mirror's pow2 stride, S above
+    # one tid tile, W past one shared-memory chunk, the grid's edges
+    def dev_int(a):
+        return torch.from_numpy(a).to(dev)
+
+    for n_rows, stride, n_words, b, e in [
+            (6, 8, 8, 3, 5), (20, 64, 33, 4, 9), (9, 3125, 3125, 2, 3),
+            (300, 4096, 3125, 8, 256), (300, 4096, 3125, 1, 256),
+            (40, 3125, 3125, 5, 257), (7, 4, 1, 65535, 1),
+            (7, 4, 3, 1, 8 * 65535), (3, 40000, 40000, 1, 2)]:
+        m, pidx, eidx = cases.dense_case(rng, n_rows, stride, b, e)
+        store = to_device_words(m, dev)
+        args = (store, dev_int(pidx), store, dev_int(eidx), n_words)
+        held("bitmap_join_many", bj.bitmap_join_many_rows(*args),
+             bitmap_join_many_rows_ref(*args),
+             f"indexed store [{n_rows}, {stride}] n_words={n_words} "
+             f"B={b} E={e}")
+    for n_rows, stride, n_words, b, e, s, past in [
+            (6, 8, 8, 3, 5, 40, False), (20, 64, 33, 4, 9, 70, True),
+            (9, 3125, 3125, 3, 3, 300, False),
+            (300, 4096, 3125, 4, 64, 1024, False),
+            (300, 4096, 3125, 1, 256, 2000, False),
+            (40, 4096, 3125, 8, 65, 8192, False),
+            (7, 4, 1, 65535, 1, 2, False), (7, 4, 3, 2, 8 * 65535, 3, False)]:
+        m, tids, lens, eidx = cases.sparse_case(rng, n_rows, stride, n_words,
+                                                b, e, s, past_width=past)
+        args = (dev_int(tids), dev_int(lens), to_device_words(m, dev),
+                dev_int(eidx), n_words)
+        held("gather_intersect_many", gi.gather_intersect_many_rows(*args),
+             gather_intersect_many_rows_ref(*args),
+             f"indexed store [{n_rows}, {stride}] n_words={n_words} B={b} "
+             f"E={e} S={s}{' tids past n_words' if past else ''}")
+
     # the entry point's shapes (kernels bench; T10I4D100K level 2, rows
     # off the 16-byte grid), then edges: E=1, W % 4 != 0, W past one
     # shared-memory chunk, a tensor whose base is off the 16-byte grid,
@@ -251,23 +294,50 @@ def phase_parity(dev):
 
 
 class Recorder:
-    """Wraps a kernel wrapper as the backend calls it: counts calls per
-    input shape and keeps the first inputs of each shape for timing."""
+    """Wraps an indexed kernel entry as the backend calls it: counts the
+    calls per batch shape (the reference's padded B', [S',] E'), keeps
+    the index arguments of the first call of each shape, and one clone
+    of the arena mirror, taken by :meth:`freeze` after the phase (the
+    mirror only grows, so it holds every row a kept index names)."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, sparse):
         self.fn = fn
+        self.sparse = sparse
+        # positions of the index arguments; position 2 is the mirror
+        # (and, dense, position 0 too)
+        self.index_args = (0, 1, 3) if sparse else (1, 3)
         self.shapes = collections.Counter()
         self.inputs = {}
+        self.mirror = None
 
-    def __call__(self, a, b, mask=None):
-        key = (tuple(a.shape), tuple(b.shape))
+    def key(self, args):
+        from repro_torch.core.tidlist import pow2
+        b, e = args[3].shape
+        if self.sparse:
+            return pow2(b), pow2(args[0].shape[1], lo=64), pow2(e, lo=64)
+        return pow2(b), pow2(e, lo=64)
+
+    def __call__(self, *args):
+        key = self.key(args)
         self.shapes[key] += 1
         if key not in self.inputs:
-            self.inputs[key] = (a.clone(), b.clone())
-        return self.fn(a, b, mask)
+            self.inputs[key] = {i: args[i].clone() for i in self.index_args}
+            self.inputs[key][4] = args[4]
+        self.mirror = args[2]
+        return self.fn(*args)
+
+    def freeze(self):
+        if self.mirror is not None:
+            self.mirror = self.mirror.clone()
 
     def main_shape(self):
         return self.shapes.most_common(1)[0][0]
+
+    def case(self, key):
+        """The entry's arguments of the first call at ``key``, on the
+        mirror's clone."""
+        kept = self.inputs[key]
+        return tuple(kept.get(i, self.mirror) for i in range(5))
 
 
 def phase_mine(dev, bitmaps, counts, min_support, granularity,
@@ -279,8 +349,8 @@ def phase_mine(dev, bitmaps, counts, min_support, granularity,
     from repro_torch.kernels.bitmap_join import ops as bj
     from repro_torch.kernels.gather_intersect import ops as gi
     if recorders is not None:
-        join_backend.bitmap_join_many = recorders["bitmap_join_many"]
-        join_backend.gather_intersect_many = recorders[
+        join_backend.bitmap_join_many_rows = recorders["bitmap_join_many"]
+        join_backend.gather_intersect_many_rows = recorders[
             "gather_intersect_many"]
     bj.launches = 0
     gi.launches = 0
@@ -293,9 +363,9 @@ def phase_mine(dev, bitmaps, counts, min_support, granularity,
     launches = {"bitmap_join_many": bj.launches,
                 "gather_intersect_many": gi.launches}
     if recorders is not None:
-        join_backend.bitmap_join_many = recorders["bitmap_join_many"].fn
-        join_backend.gather_intersect_many = recorders[
-            "gather_intersect_many"].fn
+        for name, rec in recorders.items():
+            setattr(join_backend, f"{name}_rows", rec.fn)
+            rec.freeze()
     label = f"{granularity}, {representation}, max_k={max_k}"
     want = {c: s for c, s in serial.items() if len(c) <= max_k}
     if result != want:
@@ -374,77 +444,184 @@ def phase_profile(dev, bitmaps, counts, min_support, granularity,
         log(f"  device {sec:.4f} s in {count} x {key[:90]}")
 
 
-def work(name, a, x):
+def work(name, args):
     """(bytes, integer ops) the kernel ``name`` must move and do on these
-    inputs: each input read once, the counts written once."""
+    inputs, each read or written once. The batched kernels count what
+    the real lanes need, whatever implements them: the distinct store
+    rows they name, ``n_words`` words each (for gather_intersect_many
+    the distinct (row, 32-byte sector) pairs their valid tids touch),
+    plus the indices, tids and counts. Pad requests and lanes, tids past
+    a request's length and a row's words past ``n_words`` are no work."""
     import torch
     if name == "bitmap_join":
+        p, x = args
         e, w = x.shape
         return (w + e * w + e) * 4, 3 * e * w
-    b, e, w = x.shape
     if name == "bitmap_join_many":
-        return (b * w + b * e * w + b * e) * 4, 3 * b * e * w
-    # each valid tid reads one 32-byte sector of every extension row in
-    # its batch row; a sector serves every tid inside it
-    sectors = sum(int(torch.unique(r[r >= 0] >> 8).numel()) for r in a)
-    valid = int((a >= 0).sum())
-    return sectors * e * 32 + a.numel() * 4 + b * e * 4, 4 * valid * e
+        prefix_rows, pidx, ext_rows, eidx, n = args
+        live = (pidx >= 0)[:, None] & (eidx >= 0)
+        p_rows = torch.unique(pidx[pidx >= 0])
+        e_rows = torch.unique(eidx[live])
+        rows = (torch.unique(torch.cat([p_rows, e_rows])).numel()
+                if prefix_rows.data_ptr() == ext_rows.data_ptr()
+                else p_rows.numel() + e_rows.numel())
+        nbytes = (rows * n + pidx.numel() + 2 * eidx.numel()) * 4
+        return nbytes, 3 * int(live.sum()) * n
+    tids, lens, ext_rows, eidx, n = args
+    b, s = tids.shape
+    valid = (tids >= 0) & (torch.arange(s, device=tids.device)[None, :]
+                           < lens[:, None])
+    sectors, ops = [], 0
+    for i in range(b):
+        t = tids[i][valid[i]].long()
+        r = eidx[i][eidx[i] >= 0].long()
+        ops += 4 * t.numel() * r.numel()
+        word = torch.clamp(t >> 5, max=n - 1)
+        # the store's base is 512-byte aligned, so a word's sector is
+        # its word offset // 8
+        sectors.append(torch.unique(
+            (r[:, None] * ext_rows.stride(0) + word[None, :]) >> 3))
+    n_sectors = torch.unique(torch.cat(sectors)).numel()
+    nbytes = n_sectors * 32 + (int(valid.sum()) + b + 2 * eidx.numel()) * 4
+    return nbytes, ops
 
 
-def measure(name, kernel, plain, a, x):
-    """Time one kernel against its plain version and its bound on the
-    inputs ``a``, ``x``; fails if the two disagree."""
+def describe(name, args):
+    """The launch shape of ``args`` as text."""
+    if name == "bitmap_join":
+        return f"E={args[1].shape[0]} W={args[1].shape[1]}"
+    b, e = args[3].shape
+    s = f" S={args[0].shape[1]}" if name == "gather_intersect_many" else ""
+    live = int((args[3] >= 0).sum())
+    return (f"B={b} E={e}{s} ({live} real lanes) n_words={args[4]} "
+            f"store [{args[2].shape[0]}, {args[2].stride(0)}]")
+
+
+def parent_design(name, args):
+    """The parent commit's sweep step on the same inputs, as two
+    callables (the gathered copy alone; copy plus kernel) and the check
+    of its counts: pad the batch to the reference's shape (pad requests
+    and lanes name row 0), gather the [B', E', W'] extension rows (and,
+    dense, the [B', W'] prefixes) out of the store with ``index_select``
+    at the store's full width, and run the gathered-form call on them."""
     import torch
-    got, want = kernel(a, x), plain(a, x)
+    from repro_torch.core.tidlist import pow2
+    from repro_torch.kernels.bitmap_join import ops as bj
+    from repro_torch.kernels.gather_intersect import ops as gi
+    store, eidx = args[2], args[3]
+    b, e = eidx.shape
+    bp, ep, w = pow2(b), pow2(e, lo=64), store.shape[1]
+    ei = torch.zeros((bp, ep), dtype=torch.int64, device=store.device)
+    ei[:b, :e] = eidx.clamp(min=0)
+    ei = ei.view(-1)
+    if name == "bitmap_join_many":
+        pi = torch.zeros(bp, dtype=torch.int64, device=store.device)
+        pi[:b] = args[1].clamp(min=0)
+
+        def copy():
+            return (store.index_select(0, pi),
+                    store.index_select(0, ei).view(bp, ep, w))
+
+        def step():
+            return bj.bitmap_join_many(*copy())
+    else:
+        tids, lens = args[0], args[1]
+        s = tids.shape[1]
+        tp = torch.full((bp, pow2(s, lo=64)), -1, dtype=torch.int32,
+                        device=store.device)
+        tp[:b, :s] = torch.where(
+            torch.arange(s, device=store.device)[None, :] < lens[:, None],
+            tids, -1)
+
+        def copy():
+            return store.index_select(0, ei).view(bp, ep, w)
+
+        def step():
+            return gi.gather_intersect_many(tp, copy())
+    return copy, step
+
+
+def measure(name, kernel, plain, args, floor_ms=None):
+    """Time one kernel against its plain version and its bound on
+    ``args``, and for a batched kernel the parent design on the same
+    inputs; fails if any of them disagree."""
+    import torch
+    got, want = kernel(*args), plain(*args)
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
     if err:
         raise SystemExit(f"{name} disagrees with its plain version at "
-                         f"{tuple(x.shape)}")
-    # a batched kernel reads exts the backend has just gathered, so the
-    # main path finds them in L2: "ms" is that warm time, "ms_cold" the
-    # time from HBM, the one the bytes bound speaks of
-    ms, host_ms = time_ms(lambda: kernel(a, x))
-    ms_cold, _ = time_ms(lambda: kernel(a, x), cold=True)
-    plain_ms, _ = time_ms(lambda: plain(a, x), iters=3, warmup=1)
-    nbytes, ops = work(name, a, x)
+                         f"{describe(name, args)}")
+    # "ms" is the L2-warm time (the mirror is 10-20 MB and stays in the
+    # 50 MB L2 between flushes), "ms_cold" the time from HBM, the one the
+    # bytes bound speaks of
+    ms, host_ms = time_ms(lambda: kernel(*args))
+    ms_cold, _ = time_ms(lambda: kernel(*args), cold=True)
+    plain_ms, _ = time_ms(lambda: plain(*args), iters=3, warmup=1)
+    nbytes, ops = work(name, args)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "ms_cold": ms_cold, "host_ms": host_ms,
-            "bytes": nbytes, "ops": ops}
+    m = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "library_ms": None, "ms_cold": ms_cold, "host_ms": host_ms,
+         "bytes": nbytes, "ops": ops}
+    if name == "bitmap_join":
+        return m
+    copy, step = parent_design(name, args)
+    old = step()
+    b, e = args[3].shape
+    if not torch.equal(torch.where(args[3] >= 0, old[:b, :e], 0), got):
+        raise SystemExit(f"the parent design disagrees with {name} at "
+                         f"{describe(name, args)}")
+    m["parent_copy_ms"], _ = time_ms(copy)
+    m["parent_design_ms"], m["parent_design_host_ms"] = time_ms(step)
+    m["parent_design_ms_cold"], _ = time_ms(step, cold=True)
+    m["launch_floor_ms"] = floor_ms
+    return m
 
 
 def log_time(name, where, shape, m):
     log(f"time {name} at {shape} ({where}): kernel {m['ms']:.4f} ms on "
         f"the device, L2-warm ({m['ms_cold']:.4f} ms from HBM; "
         f"{m['host_ms']:.4f} ms host per launch), plain "
-        f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+        f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.5f} ms "
         f"({m['bound_by']}: {m['bytes']} B, {m['ops']} ops)")
+    if "parent_design_ms" in m:
+        log(f"  parent design (gathered copy + kernel) "
+            f"{m['parent_design_ms']:.4f} ms L2-warm "
+            f"({m['parent_design_ms_cold']:.4f} ms from HBM; "
+            f"{m['parent_design_host_ms']:.4f} ms host), of which the "
+            f"copy {m['parent_copy_ms']:.4f} ms; launch floor "
+            f"{m['launch_floor_ms']:.4f} ms")
 
 
-def report(dev, recorders, df_recorders, entry_inputs, launches, worst):
-    """The kernels line: each batched kernel timed at its most frequent
-    phase-3 shape (and at its most frequent depth-first shape), the
-    single-prefix kernel at the entry point's shapes, all on inputs
-    captured from those runs. ``launches`` maps each kernel to its
-    launches per phase."""
+def report(recorders, df_recorders, entry_inputs, launches, worst):
+    """The kernels line: each batched kernel timed through its indexed
+    entry at its most frequent phase-3 batch shape (and at its most
+    frequent depth-first one), the single-prefix kernel at the entry
+    point's shapes, all on inputs captured from those runs. ``launches``
+    maps each kernel to its launches per phase."""
     import torch
     from repro_torch.kernels.bitmap_join import ops as bj
-    from repro_torch.kernels.bitmap_join.ref import (bitmap_join_many_ref,
-                                                     bitmap_join_ref)
+    from repro_torch.kernels.bitmap_join.ref import (
+        bitmap_join_many_rows_ref, bitmap_join_ref)
     from repro_torch.kernels.gather_intersect import ops as gi
     from repro_torch.kernels.gather_intersect.ref import (
-        gather_intersect_many_ref)
+        gather_intersect_many_rows_ref)
+    # an empty kernel between the same event pairs: the floor under
+    # every device time below
+    floor_ms, floor_host_ms = time_ms(lambda: torch.cuda._sleep(0))
+    log(f"time launch floor (torch.cuda._sleep(0)): {floor_ms:.4f} ms on "
+        f"the device, {floor_host_ms:.4f} ms host")
     rows = []
     specs = [
-        ("bitmap_join_many", bj.bitmap_join_many, bitmap_join_many_ref,
+        ("bitmap_join_many", bj.bitmap_join_many_rows,
+         bitmap_join_many_rows_ref,
          "src/repro_torch/kernels/csrc/bitmap_join_many.cu",
          "src/repro/kernels/bitmap_join/kernel.py:116"),
-        ("gather_intersect_many", gi.gather_intersect_many,
-         gather_intersect_many_ref,
+        ("gather_intersect_many", gi.gather_intersect_many_rows,
+         gather_intersect_many_rows_ref,
          "src/repro_torch/kernels/csrc/gather_intersect_many.cu",
          "src/repro/kernels/gather_intersect/kernel.py:74"),
         ("bitmap_join", bj.bitmap_join, bitmap_join_ref,
@@ -452,11 +629,11 @@ def report(dev, recorders, df_recorders, entry_inputs, launches, worst):
          "src/repro/kernels/bitmap_join/kernel.py:56"),
     ]
     for name, kernel, plain, source, replaces in specs:
-        # (label, inputs, where they came from); the first case gives
+        # (label, arguments, where they came from); the first case gives
         # the line's numbers: the phase-3 shape, or the kernels-bench one
         if name == "bitmap_join":
-            cases = [(k, a, x, f"entry point, {k}")
-                     for k, (a, x) in entry_inputs.items()]
+            cases = [(k, args, f"entry point, {k}")
+                     for k, args in entry_inputs.items()]
         else:
             cases = []
             for phase, recs in (("bucket", recorders),
@@ -464,19 +641,20 @@ def report(dev, recorders, df_recorders, entry_inputs, launches, worst):
                 rec = recs[name]
                 if not rec.shapes:
                     continue
-                log(f"  {name} {phase} shapes: "
+                axes = "B', S', E'" if rec.sparse else "B', E'"
+                log(f"  {name} {phase} batch shapes (padded {axes}): "
                     f"{dict(rec.shapes.most_common(8))}")
-                sh = rec.main_shape()
-                cases.append((phase, *rec.inputs[sh],
-                              f"{rec.shapes[sh]} of "
+                key = rec.main_shape()
+                cases.append((phase, rec.case(key),
+                              f"{rec.shapes[key]} of "
                               f"{sum(rec.shapes.values())} {phase}-phase "
-                              "calls"))
+                              f"calls at padded shape {key}"))
         shapes = {}
-        for label, a, x, where in cases:
-            m = measure(name, kernel, plain, a, x)
-            log_time(name, where, (tuple(a.shape), tuple(x.shape)), m)
-            shapes[label] = {"shape": [list(a.shape), list(x.shape)],
-                             "where": where, **m}
+        for label, args, where in cases:
+            m = measure(name, kernel, plain, args, floor_ms)
+            log_time(name, where, describe(name, args), m)
+            shapes[label] = {"shape": describe(name, args), "where": where,
+                             **m}
         m = shapes[cases[0][0]]
         per_phase = launches[name]
         rows.append({
@@ -487,15 +665,6 @@ def report(dev, recorders, df_recorders, entry_inputs, launches, worst):
                                  "library_ms", "ms_cold", "host_ms")},
             "launches_by_phase": per_phase, "shapes": shapes,
         })
-    # the backend's gathered [B, E, W] exts copy out of the mirror, at
-    # the phase-3 shape of bitmap_join_many
-    a, x = recorders["bitmap_join_many"].inputs[
-        recorders["bitmap_join_many"].main_shape()]
-    b, e, w = x.shape
-    mirror = x.reshape(-1, w)
-    idx = torch.randint(0, mirror.shape[0], (b * e,), device=dev)
-    copy_ms, _ = time_ms(lambda: mirror.index_select(0, idx))
-    log(f"time gathered exts copy [{b}, {e}, {w}] int32: {copy_ms:.4f} ms")
     return rows
 
 
@@ -505,8 +674,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from repro_torch.core import fpm
-    from repro_torch.core.join_backend import (bitmap_join_many,
-                                               gather_intersect_many)
+    from repro_torch.core.join_backend import (bitmap_join_many_rows,
+                                               gather_intersect_many_rows)
     from repro_torch.core.tidlist import pack_database
     from repro_torch.data.transactions import load, min_support_count
     dev = torch.device("cuda")
@@ -527,8 +696,9 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s (host reference)")
 
     def recs():
-        return {"bitmap_join_many": Recorder(bitmap_join_many),
-                "gather_intersect_many": Recorder(gather_intersect_many)}
+        return {"bitmap_join_many": Recorder(bitmap_join_many_rows, False),
+                "gather_intersect_many": Recorder(gather_intersect_many_rows,
+                                                  True)}
 
     launches = {"bitmap_join_many": {}, "gather_intersect_many": {},
                 "bitmap_join": {}}
@@ -572,8 +742,7 @@ def main() -> int:
             ("auto", "auto", MAIN_MAX_K)):
         phase_profile(dev, bitmaps, counts, min_support, granularity,
                       representation, max_k)
-    rows = report(dev, recorders, df_recorders, entry_inputs, launches,
-                  worst)
+    rows = report(recorders, df_recorders, entry_inputs, launches, worst)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -22,9 +22,10 @@ Backends implement the same batched API:
           only when asked for by name.
   torch   the kernel backend: dense prefixes go to ``bitmap_join_many``
           and sparse (tid-list/diffset) prefixes to
-          ``gather_intersect_many``, gathering extension rows from the
-          arena's mirror. On a CUDA arena the wrappers launch the CUDA
-          kernels; on a CPU arena they run their plain versions.
+          ``gather_intersect_many``, whose indexed entries read prefix and
+          extension rows from the arena's mirror by handle. On a CUDA
+          arena the wrappers launch the CUDA kernels; on a CPU arena they
+          run their plain versions.
 """
 from __future__ import annotations
 
@@ -39,8 +40,9 @@ import torch
 
 from repro_torch.core import tidlist
 from repro_torch.core.tidlist import BitmapArena, pow2
-from repro_torch.kernels.bitmap_join.ops import bitmap_join_many
-from repro_torch.kernels.gather_intersect.ops import gather_intersect_many
+from repro_torch.kernels.bitmap_join.ops import bitmap_join_many_rows
+from repro_torch.kernels.gather_intersect.ops import (
+    gather_intersect_many_rows)
 from repro_torch.obs import schema as obs_schema
 
 # Dispatcher defaults: how many requests one kernel launch may carry,
@@ -158,21 +160,31 @@ class NumpyBackend(JoinBackend):
         return out
 
 
-# E- and S-padding floor of the kernel backend's batches: the reference
-# engine's padding, kept so a batch (and the tid payload billed to
-# h2d_bytes) has the same shape in both.
+# E- and S-padding floor of the reference's kernel batches, kept so the
+# tid payload billed to h2d_bytes has the same size in both engines.
 E_PAD_FLOOR = 64
 
 
 class TorchBackend(JoinBackend):
-    """The kernel backend: pad the ragged batch to [B', E', W'] (powers
-    of two, E' and S' at least ``E_PAD_FLOOR``, W' the arena mirror's
-    width), gather the extension rows from the arena's device mirror,
-    and launch ``bitmap_join_many`` for the dense requests and
-    ``gather_intersect_many`` for the sparse ones — at most two launches
-    per flush. Each request's counts are sliced back out of its row."""
+    """The kernel backend: ``bitmap_join_many_rows`` for the dense
+    requests of a flush and ``gather_intersect_many_rows`` for the sparse
+    ones — at most two launches per flush — both reading extension and
+    prefix rows by index straight out of the arena's device mirror.
+
+    Each launch stages its int32 index array (``[pidx | eidx]`` dense,
+    ``[eidx | lens | tids]`` sparse) in one host buffer, pinned on a CUDA
+    arena, ships it with one ``non_blocking`` copy, and reads the counts
+    back with one copy into a second pinned buffer; the buffers are
+    reused and grown by the dispatcher thread. A launch covers the real
+    batch: pad lanes carry -1 and read nothing, and no request is padded
+    in. Only the sparse path's h2d bill keeps the reference's padded
+    [B', S'] size (``E_PAD_FLOOR``), computed, not shipped."""
 
     name = "torch"
+
+    def __init__(self):
+        self._stage: Optional[torch.Tensor] = None    # index staging
+        self._counts: Optional[torch.Tensor] = None   # counts read-back
 
     def sweep_many(self, arena, requests):
         totals = [np.zeros(len(r.ext_handles), np.int64) for r in requests]
@@ -184,49 +196,85 @@ class TorchBackend(JoinBackend):
                          (sparse, self._sweep_sparse)):
             if not part:
                 continue
+            # a view of the reused read-back buffer: consumed here,
+            # before the next launch refills it
             counts = fn(arena, [requests[i] for i in part])
             for j, i in enumerate(part):
                 totals[i] += counts[j, :len(requests[i].ext_handles)]
         return totals
 
     @staticmethod
-    def _gather_exts(dev, requests, bp):
-        """[bp, E', W'] extension rows gathered from the mirror ``dev``
-        (pad lanes and pad requests gather row 0; their counts are
-        never read)."""
-        ep = pow2(max(len(r.ext_handles) for r in requests), lo=E_PAD_FLOOR)
-        eidx = np.zeros((bp, ep), np.int64)
+    def _host(buf, n, device):
+        """The first ``n`` int32 slots of ``buf``, reallocated (pinned on
+        a CUDA arena) when too small; returns (buffer, slots)."""
+        if buf is None or buf.numel() < n:
+            buf = torch.empty(pow2(n, lo=4096), dtype=torch.int32,
+                              pin_memory=device.type == "cuda")
+        return buf, buf[:n]
+
+    def _staged(self, device, n):
+        """A [n] int32 numpy view of the staging buffer to fill.
+
+        The buffer is refilled only after the previous launch's counts
+        were read back, which synchronises the stream (``_launch``): by
+        then the non-blocking copy that read the buffer has completed.
+        The dense and sparse launches of one flush share the buffer on
+        that condition. A CPU test cannot show this race."""
+        self._stage, host = self._host(self._stage, n, device)
+        return host.numpy()
+
+    def _launch(self, device, n, entry):
+        """Ship the first ``n`` staged slots with one H→D copy, run
+        ``entry(index_tensor)`` and read its [B, E] counts back through
+        one D→H copy into pinned memory (then wait for the stream)."""
+        idx = self._stage[:n].to(device, non_blocking=True)
+        counts = entry(idx)
+        self._counts, out = self._host(self._counts, counts.numel(), device)
+        out = out.view(counts.shape)
+        out.copy_(counts, non_blocking=True)
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+        return out.numpy()
+
+    @staticmethod
+    def _fill_eidx(eidx, requests):
+        eidx.fill(-1)
         for i, r in enumerate(requests):
             eidx[i, :len(r.ext_handles)] = r.ext_handles
-        idx = torch.from_numpy(eidx.reshape(-1)).to(dev.device)
-        return dev.index_select(0, idx).view(bp, ep, dev.shape[1])
 
     def _sweep_dense(self, arena, requests):
-        bp = pow2(len(requests))
-        pidx = np.zeros(bp, np.int64)
-        pidx[:len(requests)] = [r.prefix_handle for r in requests]
-        dev = arena.device_rows()
-        exts = self._gather_exts(dev, requests, bp)
-        prefixes = dev.index_select(0, torch.from_numpy(pidx).to(dev.device))
-        return bitmap_join_many(prefixes, exts).cpu().numpy()
+        b = len(requests)
+        e = max(len(r.ext_handles) for r in requests)
+        mirror = arena.device_rows()
+        host = self._staged(mirror.device, b + b * e)
+        host[:b] = [r.prefix_handle for r in requests]
+        self._fill_eidx(host[b:].reshape(b, e), requests)
+        return self._launch(mirror.device, b + b * e, lambda idx: (
+            bitmap_join_many_rows(mirror, idx[:b], mirror,
+                                  idx[b:].view(b, e), arena.n_words)))
 
     def _sweep_sparse(self, arena, requests):
         """Sparse sub-batch: prefixes are tid/diffset payloads, shipped
-        host→device per launch (billed at the padded array's nbytes —
-        sparse rows have no mirror payload), padded to a pow2 S with the
-        -1 sentinel; extension rows gather from the mirror like the
-        dense path."""
-        bp = pow2(len(requests))
+        host→device per launch (billed at the reference's padded [B', S']
+        int32 array — sparse rows have no mirror payload)."""
+        b = len(requests)
+        e = max(len(r.ext_handles) for r in requests)
         payloads = [arena.tids_of(r.prefix_handle) for r in requests]
-        sp = pow2(max(1, max(len(t) for t in payloads)), lo=E_PAD_FLOOR)
-        tmat = np.full((bp, sp), -1, np.int32)
+        s = max(1, max(len(t) for t in payloads))
+        arena.count_h2d(pow2(b) * pow2(s, lo=E_PAD_FLOOR) * 4)
+        mirror = arena.device_rows()
+        n = b * e + b + b * s
+        host = self._staged(mirror.device, n)
+        self._fill_eidx(host[:b * e].reshape(b, e), requests)
+        host[b * e:b * e + b] = [len(t) for t in payloads]
+        tids = host[b * e + b:].reshape(b, s)
+        tids.fill(-1)
         for i, t in enumerate(payloads):
-            tmat[i, :len(t)] = t
-        dev = arena.device_rows()
-        exts = self._gather_exts(dev, requests, bp)
-        arena.count_h2d(tmat.nbytes)
-        tids = torch.from_numpy(tmat).to(dev.device)
-        return gather_intersect_many(tids, exts).cpu().numpy()
+            tids[i, :len(t)] = t
+        return self._launch(mirror.device, n, lambda idx: (
+            gather_intersect_many_rows(
+                idx[b * e + b:].view(b, s), idx[b * e:b * e + b], mirror,
+                idx[:b * e].view(b, e), arena.n_words)))
 
 
 _REGISTRY: Dict[str, Callable[[], JoinBackend]] = {

@@ -292,9 +292,9 @@ class BitmapArena:
     @property
     def mirror_words(self) -> int:
         """Row width of the device mirror: ``n_words`` zero-padded to a
-        power of two. Pad words AND to zero and count nothing; the pad
-        makes a kernel batch one ``index_select`` of mirror rows and keeps
-        every row 16-byte aligned for the kernels' 128-bit loads."""
+        power of two. Pad words AND to zero and count nothing, and the
+        kernels read only ``n_words`` of each row; the pad keeps every
+        row 16-byte aligned for their 128-bit loads."""
         return pow2(self._n_words)
 
     # ------------------------------------------------------------- load --

@@ -5,7 +5,9 @@ into ``build/kernels/<name>.so`` at the repository root (a directory git
 ignores), for ``sm_90a``. A library is built at its first use, or anew
 when its source is newer; :func:`build_all` starts one ``nvcc`` per
 source, all at once, and waits for them. Nothing is compiled when this
-module is imported.
+module is imported. A :class:`Kernel` binds one entry point once; the
+``check_*`` functions are the argument checks the wrappers share before
+they pass pointers.
 """
 from __future__ import annotations
 
@@ -16,11 +18,15 @@ import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("bitmap_join_many", "gather_intersect_many", "bitmap_join")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+GRID_MAX = 65535            # a CUDA grid's y and z limit
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -75,28 +81,71 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
     return logs
 
 
-def library(name: str, argtypes: Sequence) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu`` (built if needed), with
-    the entry point ``name`` typed as ``argtypes`` -> int and
-    ``<name>_error`` typed int -> C string."""
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build_all((name,))
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-            err = getattr(lib, f"{name}_error")
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            _libs[name] = lib
+            lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
         return lib
 
 
-def check(lib: ctypes.CDLL, name: str, code: int) -> None:
-    """Raise if a launch returned a CUDA error."""
-    if code != 0:
-        msg = getattr(lib, f"{name}_error")(code).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
+class Kernel:
+    """The C entry point ``name`` of ``csrc/<name>.cu``, typed as
+    ``argtypes`` -> int (a CUDA error code). It is built and bound at its
+    first call, and later calls go straight to ``ctypes``; a call raises
+    ``RuntimeError`` when the launch returned an error."""
 
+    def __init__(self, name: str, argtypes: Sequence):
+        self.name = name
+        self.argtypes = list(argtypes)
+        self._fn = None
+        self._err = None
+
+    def _bind(self):
+        lib = library(self.name)
+        err = getattr(lib, f"{self.name}_error")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        fn = getattr(lib, self.name)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._err = err
+        self._fn = fn
+        return fn
+
+    def __call__(self, *args) -> None:
+        fn = self._fn or self._bind()
+        code = fn(*args)
+        if code != 0:
+            msg = self._err(code).decode()
+            raise RuntimeError(f"{self.name} launch failed: CUDA error "
+                               f"{code} ({msg})")
+
+
+def check_store(name: str, rows: torch.Tensor, n_words: int) -> None:
+    """Raise unless ``rows`` is an int32 [rows, width] store with unit
+    word stride whose rows hold at least ``n_words`` words."""
+    if rows.dtype != torch.int32:
+        raise TypeError(f"{name} must hold int32 words, got {rows.dtype}")
+    if rows.dim() != 2 or rows.stride(1) != 1:
+        raise ValueError(f"{name} must be a [rows, words] store with unit "
+                         f"word stride, got {tuple(rows.shape)}")
+    if not 0 <= n_words <= rows.shape[1]:
+        raise ValueError(f"n_words={n_words} outside {name}'s row width "
+                         f"{rows.shape[1]}")
+
+
+def check_index(name: str, idx: torch.Tensor, dim: int) -> None:
+    """Raise unless ``idx`` is a ``dim``-d int32 tensor."""
+    if idx.dtype != torch.int32 or idx.dim() != dim:
+        raise TypeError(f"{name} must be a {dim}-d int32 tensor, got "
+                        f"{idx.dtype} {tuple(idx.shape)}")
+
+
+def check_grid(b: int, e: int, rows_per_block: int) -> None:
+    """Raise when a [b, e] batch needs more blocks than a grid's y (row
+    tiles) or z (requests) axis holds."""
+    if b > GRID_MAX or -(-e // rows_per_block) > GRID_MAX:
+        raise ValueError(f"batch [{b}, {e}] exceeds the kernel's grid")

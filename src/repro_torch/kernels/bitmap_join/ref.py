@@ -38,3 +38,17 @@ def bitmap_join_ref(prefix: torch.Tensor, exts: torch.Tensor) -> torch.Tensor:
     ``counts[e] = Σ_w popcount(prefix[w] & exts[e, w])``."""
     joined = exts & prefix[None, :]
     return popcount32(joined).sum(dim=1, dtype=torch.int32)
+
+
+def bitmap_join_many_rows_ref(prefix_rows: torch.Tensor, pidx: torch.Tensor,
+                              ext_rows: torch.Tensor, eidx: torch.Tensor,
+                              n_words: int) -> torch.Tensor:
+    """The indexed form: prefix_rows and ext_rows are int32 row stores,
+    pidx [B] and eidx [B, E] int32 row indices -> counts [B, E] int32,
+    ``counts[b, e] = Σ_{w < n_words} popcount(prefix_rows[pidx[b], w]
+    & ext_rows[eidx[b, e], w])``. An index of -1 (a pad request or lane)
+    counts 0."""
+    p = prefix_rows[pidx.clamp(min=0).long(), :n_words]
+    x = ext_rows[eidx.clamp(min=0).long(), :n_words]
+    live = (pidx >= 0)[:, None] & (eidx >= 0)
+    return torch.where(live, bitmap_join_many_ref(p, x), 0)

@@ -16,7 +16,9 @@ from repro_torch.kernels.bitmap_join.ref import (bitmap_join_many_ref,
                                                  bitmap_join_ref)
 from repro_torch.kernels.gather_intersect import ops as gi
 from repro_torch.kernels.gather_intersect.ref import (
-    gather_intersect_many_ref)
+    gather_intersect_many_ref, gather_intersect_many_rows_ref)
+from repro_torch.kernels.bitmap_join.ref import bitmap_join_many_rows_ref
+import _index_cases as cases
 
 pytestmark = pytest.mark.cuda
 RNG = np.random.default_rng(13)
@@ -92,6 +94,82 @@ def test_gather_intersect_many_kernel_matches_plain(cuda, b, e, s, w):
     got = gi.gather_intersect_many(t, x)
     assert gi.launches == n0 + 1
     assert torch.equal(got, gather_intersect_many_ref(t, x))
+
+
+# indexed entries: (n_rows, stride, n_words, B, E) — repeated handles,
+# pad requests and lanes, n_words below the stride, rows off the 16-byte
+# grid (odd stride), the mining path's phase-3 and phase-5 shapes over
+# the mirror's pow2 stride, and the grid's y and z edges
+@pytest.mark.parametrize("n_rows,stride,n_words,b,e", [
+    (6, 8, 8, 3, 5), (20, 64, 33, 4, 9), (9, 3125, 3125, 2, 3),
+    (300, 4096, 3125, 8, 256), (300, 4096, 3125, 1, 256),
+    (40, 3125, 3125, 5, 257), (7, 4, 1, 65535, 1), (7, 4, 3, 1, 8 * 65535),
+    (3, 12301, 12301, 2, 9), (3, 40000, 40000, 1, 2)])
+def test_bitmap_join_many_rows_kernel_matches_plain(cuda, n_rows, stride,
+                                                    n_words, b, e):
+    rng = np.random.default_rng(n_rows + stride + b + e)
+    m, pidx, eidx = cases.dense_case(rng, n_rows, stride, b, e)
+    args = (to_device_words(m, cuda), torch.from_numpy(pidx).to(cuda),
+            to_device_words(m, cuda), torch.from_numpy(eidx).to(cuda),
+            n_words)
+    n0 = bj.launches
+    got = bj.bitmap_join_many_rows(*args)
+    assert bj.launches == n0 + 1
+    assert torch.equal(got, bitmap_join_many_rows_ref(*args))
+
+
+# (n_rows, stride, n_words, B, E, S, tids past n_words): as above, S
+# above one 256-tid tile, the phase-3 shape, B = 1 with E = 256, the
+# grid's x, y and z edges
+@pytest.mark.parametrize("n_rows,stride,n_words,b,e,s,past", [
+    (6, 8, 8, 3, 5, 40, False), (20, 64, 33, 4, 9, 70, True),
+    (9, 3125, 3125, 3, 3, 300, False), (300, 4096, 3125, 4, 64, 1024, False),
+    (300, 4096, 3125, 1, 256, 2000, False),
+    (40, 4096, 3125, 8, 65, 8192, False), (7, 4, 1, 65535, 1, 2, False),
+    (7, 4, 3, 2, 8 * 65535, 3, False)])
+def test_gather_intersect_many_rows_kernel_matches_plain(
+        cuda, n_rows, stride, n_words, b, e, s, past):
+    rng = np.random.default_rng(n_rows + stride + b + e + s)
+    m, tids, lens, eidx = cases.sparse_case(rng, n_rows, stride, n_words,
+                                            b, e, s, past_width=past)
+    args = (torch.from_numpy(tids).to(cuda), torch.from_numpy(lens).to(cuda),
+            to_device_words(m, cuda), torch.from_numpy(eidx).to(cuda),
+            n_words)
+    n0 = gi.launches
+    got = gi.gather_intersect_many_rows(*args)
+    assert gi.launches == n0 + 1
+    assert torch.equal(got, gather_intersect_many_rows_ref(*args))
+
+
+def test_gather_form_wrappers_match_indexed_entries(cuda):
+    """The gathered form is the same kernel over identity indices."""
+    rng = np.random.default_rng(5)
+    m, pidx, eidx = cases.dense_case(rng, 50, 4096, 8, 64)
+    p = to_device_words(cases.gathered_rows(m, pidx, 3125), cuda)
+    x = to_device_words(cases.gathered_rows(m, eidx, 3125), cuda)
+    store = to_device_words(m, cuda)
+    pi, ei = (torch.from_numpy(a).to(cuda) for a in (pidx, eidx))
+    assert torch.equal(bj.bitmap_join_many(p, x),
+                       bj.bitmap_join_many_rows(store, pi, store, ei, 3125))
+    m, tids, lens, eidx = cases.sparse_case(rng, 50, 4096, 3125, 4, 64, 600)
+    t = torch.from_numpy(cases.gathered_tids(tids, lens)).to(cuda)
+    x = to_device_words(cases.gathered_rows(m, eidx, 3125), cuda)
+    store = to_device_words(m, cuda)
+    assert torch.equal(gi.gather_intersect_many(t, x),
+                       gi.gather_intersect_many_rows(
+                           torch.from_numpy(tids).to(cuda),
+                           torch.from_numpy(lens).to(cuda), store,
+                           torch.from_numpy(eidx).to(cuda), 3125))
+
+
+def test_indexed_entries_refuse_a_batch_past_the_grid(cuda):
+    m = words((4, 8), cuda)
+    idx = torch.zeros((1, 8 * 65535 + 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="grid"):
+        bj.bitmap_join_many_rows(m, idx[:, 0], m, idx, 8)
+    with pytest.raises(ValueError, match="grid"):
+        gi.gather_intersect_many_rows(idx[:, :4].contiguous(), idx[:, 0], m,
+                                      idx, 8)
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):

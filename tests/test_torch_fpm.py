@@ -271,7 +271,8 @@ def _imported_roots(path):
 
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("*.py"))]
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "_index_cases.py",
+              *sorted((ROOT / "tools").glob("*.py"))]
     assert len(files) > 10
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "repro"}

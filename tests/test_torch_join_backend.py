@@ -6,6 +6,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import join_backend as rjb
 from repro.core import tidlist as rtl
@@ -78,6 +79,62 @@ def test_torch_backend_matches_reference_pallas_backend_and_h2d():
             np.testing.assert_array_equal(x, y)
         assert port.h2d_bytes == ref.h2d_bytes
     assert port.h2d_bytes > 0
+
+
+def test_torch_backend_hands_the_mirror_itself_to_the_indexed_entries(
+        monkeypatch):
+    """Each flush makes at most one launch per representation, and every
+    launch gets the arena's mirror itself (same storage and shape, not a
+    gathered copy) with int32 indices: the real batch, pad lanes -1."""
+    rows = rand_rows(12, 40)
+    arena, ht, hd = mixed_arena(rows, BitmapArena, device="cpu")
+    calls = []
+
+    def recording(name, fn, index_args):
+        def entry(*args):
+            # index tensors are views of the backend's reused staging
+            # buffer, refilled by the next launch: keep copies
+            calls.append((name, [a.clone() if i in index_args else a
+                                 for i, a in enumerate(args)]))
+            return fn(*args)
+        return entry
+
+    monkeypatch.setattr(jb, "bitmap_join_many_rows", recording(
+        "dense", jb.bitmap_join_many_rows, (1, 3)))
+    monkeypatch.setattr(jb, "gather_intersect_many_rows", recording(
+        "sparse", jb.gather_intersect_many_rows, (0, 1, 3)))
+    backend = jb.TorchBackend()
+    for flush in (SPECS + [(ht, (3, 4, 5)), (hd, (3, 9))], SPECS[:2],
+                  [(hd, (1, 2, 4, 6, 8, 10))]):
+        calls.clear()
+        reqs = [jb.SweepRequest(p, tuple(e)) for p, e in flush]
+        for c, want in zip(backend.sweep_many(arena, reqs),
+                           jb.NumpyBackend().sweep_many(arena, reqs)):
+            np.testing.assert_array_equal(c, want)
+        dense = [(p, e) for p, e in flush if p < len(rows)]
+        sparse = [(p, e) for p, e in flush if p >= len(rows)]
+        assert [n for n, _ in calls] == (["dense"] * bool(dense)
+                                         + ["sparse"] * bool(sparse))
+        mirror = arena.device_rows()
+        for name, args in calls:
+            part = dense if name == "dense" else sparse
+            stores = (args[0], args[2]) if name == "dense" else (args[2],)
+            eidx = args[3]
+            for st in stores:
+                assert st.data_ptr() == mirror.data_ptr()
+                assert st.shape == mirror.shape
+            assert args[4] == arena.n_words
+            want = np.full((len(part), max(len(e) for _, e in part)), -1)
+            for i, (_, e) in enumerate(part):
+                want[i, :len(e)] = e
+            assert eidx.dtype == torch.int32
+            np.testing.assert_array_equal(eidx.numpy(), want)
+            if name == "dense":
+                assert args[1].tolist() == [p for p, _ in part]
+            else:
+                lens = [len(arena.tids_of(p)) for p, _ in part]
+                assert args[1].tolist() == lens
+                assert args[0].shape == (len(part), max(1, max(lens)))
 
 
 def test_numpy_backend_matches_reference_numpy_backend():

@@ -1,5 +1,7 @@
 """The kernels' plain PyTorch versions against the reference's Pallas
 kernels (interpret mode) and jnp oracles, and the wrappers' device rule.
+The indexed entries (row store + int32 indices) are held against the
+reference's kernels on the gathered equivalent of the same inputs.
 
 Counts are integers, so every comparison is exact. The CUDA kernels are
 held against these plain versions on the card in test_torch_cuda.py."""
@@ -24,10 +26,12 @@ from repro.kernels.gather_intersect.ref import (
 from repro_torch.core.tidlist import to_device_words
 from repro_torch.kernels.bitmap_join import ops as bj
 from repro_torch.kernels.bitmap_join.ref import (bitmap_join_many_ref,
+                                                 bitmap_join_many_rows_ref,
                                                  bitmap_join_ref, popcount32)
 from repro_torch.kernels.gather_intersect import ops as gi
 from repro_torch.kernels.gather_intersect.ref import (
-    gather_intersect_many_ref)
+    gather_intersect_many_ref, gather_intersect_many_rows_ref)
+import _index_cases as cases
 
 RNG = np.random.default_rng(11)
 SPECIAL = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF, 0x55555555,
@@ -205,12 +209,99 @@ def test_gather_intersect_wrapper_masks_like_reference():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+# ------------------------------------------------------ indexed entries
+# (n_rows, stride, n_words, B, E): few rows (handles repeat across and
+# inside requests), n_words below the stride, a store of odd width 3,125
+# (rows off the 16-byte grid), the mirror's pow2 stride over 3,125 words
+@pytest.mark.parametrize("n_rows,stride,n_words,b,e", [
+    (6, 8, 8, 3, 5), (20, 64, 33, 4, 9), (9, 3125, 3125, 2, 3),
+    (12, 4096, 3125, 3, 4)])
+def test_bitmap_join_many_rows_plain_matches_reference_kernel(
+        n_rows, stride, n_words, b, e):
+    rng = np.random.default_rng(n_rows * 1000 + n_words)
+    m, pidx, eidx = cases.dense_case(rng, n_rows, stride, b, e)
+    p = cases.gathered_rows(m, pidx, n_words)
+    x = cases.gathered_rows(m, eidx, n_words)
+    want = np.asarray(bitmap_join_many_kernel(jnp.asarray(p), jnp.asarray(x),
+                                              interpret=True))
+    args = (t32(m), torch.from_numpy(pidx), t32(m), torch.from_numpy(eidx),
+            n_words)
+    n0 = bj.launches
+    for got in (bitmap_join_many_rows_ref(*args),
+                bj.bitmap_join_many_rows(*args)):
+        assert got.dtype == torch.int32 and got.shape == (b, e)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert bj.launches == n0
+    assert not want[eidx < 0].any() and not want[pidx < 0].any()
+
+
+# (n_rows, stride, n_words, B, E, S, tids past n_words): as above, plus
+# a store read at a narrower width with tids past it (clamped to the
+# last word read, which the reference's jnp and numpy oracles do too)
+@pytest.mark.parametrize("n_rows,stride,n_words,b,e,s,past", [
+    (6, 8, 8, 3, 5, 40, False), (20, 64, 33, 4, 9, 70, False),
+    (9, 3125, 3125, 3, 3, 300, False), (12, 4096, 3125, 4, 4, 300, False),
+    (20, 64, 33, 4, 9, 70, True)])
+def test_gather_intersect_many_rows_plain_matches_reference_kernel(
+        n_rows, stride, n_words, b, e, s, past):
+    rng = np.random.default_rng(n_rows * 1000 + n_words + s)
+    m, tids, lens, eidx = cases.sparse_case(rng, n_rows, stride, n_words,
+                                            b, e, s, past_width=past)
+    t = cases.gathered_tids(tids, lens)
+    x = cases.gathered_rows(m, eidx, n_words)
+    want = gather_intersect_many_np(t, x)
+    np.testing.assert_array_equal(
+        want, np.asarray(r_gather_ref(jnp.asarray(t), jnp.asarray(x))))
+    if not past:
+        np.testing.assert_array_equal(want, np.asarray(
+            gather_intersect_many_kernel(jnp.asarray(t), jnp.asarray(x),
+                                         interpret=True)))
+    args = (torch.from_numpy(tids), torch.from_numpy(lens), t32(m),
+            torch.from_numpy(eidx), n_words)
+    n0 = gi.launches
+    for got in (gather_intersect_many_rows_ref(*args),
+                gi.gather_intersect_many_rows(*args)):
+        assert got.dtype == torch.int32 and got.shape == (b, e)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert gi.launches == n0
+    assert not want[eidx < 0].any()
+
+
+def test_indexed_entries_empty_and_bad_inputs():
+    m = t32(words((4, 8)))
+    pidx = torch.tensor([0, 1], dtype=torch.int32)
+    eidx = torch.tensor([[1, 2], [3, -1]], dtype=torch.int32)
+    tids = torch.tensor([[1, 2, -1], [5, 9, 40]], dtype=torch.int32)
+    lens = torch.tensor([2, 3], dtype=torch.int32)
+    assert not bj.bitmap_join_many_rows(m, pidx, m, eidx, 0).any()
+    assert not gi.gather_intersect_many_rows(tids, lens, m, eidx, 0).any()
+    assert gi.gather_intersect_many_rows(
+        tids[:, :0], lens, m, eidx, 8).shape == (2, 2)
+    with pytest.raises(TypeError):
+        bj.bitmap_join_many_rows(m, pidx.long(), m, eidx, 8)
+    with pytest.raises(TypeError):
+        gi.gather_intersect_many_rows(tids, lens, m.long(), eidx, 8)
+    with pytest.raises(ValueError, match="row width"):
+        bj.bitmap_join_many_rows(m, pidx, m, eidx, 9)
+    with pytest.raises(ValueError, match="word stride"):
+        bj.bitmap_join_many_rows(m, pidx, m.t(), eidx, 2)
+    with pytest.raises(ValueError, match="batch"):
+        bj.bitmap_join_many_rows(m, pidx[:1], m, eidx, 8)
+    with pytest.raises(ValueError, match="batch"):
+        gi.gather_intersect_many_rows(tids, lens[:1], m, eidx, 8)
+    with pytest.raises(ValueError, match="different devices"):
+        bj.bitmap_join_many_rows(m, pidx, m.to("meta"), eidx, 8)
+
+
 # ----------------------------------------------------------- device rule
 def test_cpu_tensors_run_the_plain_version_without_launching():
     b0, g0 = bj.launches, gi.launches
     bj.bitmap_join_many(t32(words((2, 4))), t32(words((2, 3, 4))))
     gi.gather_intersect_many(torch.from_numpy(tids_batch(2, 8, 4)),
                              t32(words((2, 3, 4))))
+    m, idx = t32(words((4, 4))), torch.zeros((2, 3), dtype=torch.int32)
+    bj.bitmap_join_many_rows(m, idx[:, 0], m, idx, 4)
+    gi.gather_intersect_many_rows(idx, idx[:, 0], m, idx, 4)
     assert (bj.launches, gi.launches) == (b0, g0)
 
 
