@@ -39,6 +39,34 @@ Phases, each fatal on failure:
               copy of mirror rows, then the gathered-form call) and the
               launch floor; print the kernels line and the status line.
 
+Three more phases run after phase 7, before the profile, so that the
+kernels line counts their launches:
+ 10. trace    the phase-3 mine again with a ``repro_torch.obs.Tracer``:
+              supports equal ``mine_serial``, well-formed nesting, no
+              dropped event, lanes ``driver``, ``dispatcher-0`` and 8
+              workers, categories task/level/flush/sweep/arena; prints
+              the traced wall beside phase 3's, each lane's time in
+              state and the dispatcher's mean ``flush`` and ``h2d-sync``
+              spans, and writes the Chrome trace to ``build/``; then one
+              more untraced and one more traced mine, for the tracing
+              overhead over two pairs;
+ 11. residency  the phase-3 mine at max_k=4 under ``arena="jax"``
+              (eager upload: h2d after load equals the base payload)
+              and ``arena="numpy"`` (no mirror: every sweep goes through
+              the gathered forms, and never the indexed entries; max_k
+              is raised until a sparse sweep launches
+              ``gather_intersect_many`` too), each against
+              ``mine_serial``, the gathered forms held against their
+              plain versions on a captured call;
+ 12. launcher ``python -m repro_torch.launch.fpm_mine --dataset t10i4
+              --policies cilk clustered --max-k 8 --trace-summary`` as a
+              subprocess (the paper's experiment: 20,000 transactions x
+              500 items at 0.5% support); it must exit 0, and it checks
+              each policy against ``mine_serial`` itself. Its launches
+              are read from the flush spans of its trace (one launch of
+              a kernel per flush holding a request of its kind), apart
+              from the counters of this process.
+
 The script imports nothing of JAX or of the reference package ``repro``.
 It exits non-zero without a result when no CUDA device is present.
 """
@@ -60,6 +88,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
 MAIN_MAX_K = 8
 BITMAP_MAX_K = 4
+LAUNCHER_TIMEOUT_S = 420
 BENCH_E, BENCH_W = 4096, 4096  # benchmarks/kernels_bench.py's join shape
 SPIN_CYCLES = 200_000_000      # ~0.1 s of GPU spin ahead of a timing
 L2_FLUSH_BYTES = 256 << 20     # > the H100's 50 MB L2
@@ -425,6 +454,239 @@ def phase_entry(dev, bitmaps, counts):
     return launches, inputs
 
 
+def phase_trace(dev, bitmaps, counts, min_support, serial, untraced_wall):
+    """The phase-3 mine with a tracer attached; returns its launches."""
+    import repro_torch
+    from repro_torch.kernels.bitmap_join import ops as bj
+    from repro_torch.kernels.gather_intersect import ops as gi
+    from repro_torch.obs import (Tracer, check_nesting, time_in_state,
+                                 write_chrome_trace)
+    tr = Tracer()
+    bj.launches = 0
+    gi.launches = 0
+    result, met = repro_torch.mine(
+        bitmaps, min_support, device=dev, granularity="bucket",
+        policy="clustered", max_k=MAIN_MAX_K, representation="auto",
+        item_counts=counts, trace=tr)
+    launches = {"bitmap_join_many": bj.launches,
+                "gather_intersect_many": gi.launches}
+    if result != serial:
+        raise SystemExit("trace: supports differ from mine_serial")
+    events = tr.events()
+    bad = check_nesting(events)
+    if bad:
+        raise SystemExit(f"trace: {len(bad)} spans straddle, e.g. {bad[0]}")
+    if tr.dropped():
+        raise SystemExit(f"trace: {tr.dropped()} events dropped at the "
+                         f"default ring size {tr.ring_size}")
+    lanes = tr.lane_names()
+    workers = [n for n in lanes if n.startswith("worker-")]
+    if not {"driver", "dispatcher-0"} <= set(lanes) or len(workers) != 8:
+        raise SystemExit(f"trace: lanes {lanes}")
+    cats = {e.cat for e in events}
+    need = {"task", "level", "flush", "sweep", "arena"}
+    if not need <= cats:
+        raise SystemExit(f"trace: categories {sorted(cats)} lack "
+                         f"{sorted(need - cats)}")
+    path = ROOT / "build" / "trace_phase3.json"
+    path.parent.mkdir(exist_ok=True)
+    write_chrome_trace(tr, str(path))
+    log(f"trace mine[bucket, auto, max_k={MAIN_MAX_K}]: traced wall_s="
+        f"{met.wall_s:.3f} against phase 3's untraced {untraced_wall:.3f} "
+        f"({met.wall_s - untraced_wall:+.3f} s; MiningMetrics.wall_s of "
+        f"both); flushes={met.flushes} "
+        f"events={len(events)} dropped=0 lanes={len(lanes)} "
+        f"launches={json.dumps(launches)} supports==mine_serial ok; "
+        f"wrote {path.relative_to(ROOT)}")
+    states = ("eval", "sweep", "idle", "steal", "other")
+    shares = {s: 0.0 for s in states}
+    extent = 0.0
+    for row in time_in_state(tr).values():
+        ext = row["extent"] or 1.0
+        log(f"  time in state [{row['lane']}]: extent {row['extent']:.3f} s"
+            f", " + ", ".join(f"{s} {row[s] / ext:.4f}" for s in states)
+            + f", untraced {1 - row['total'] / ext:.4f}")
+        if row["lane"].startswith("worker-"):
+            extent += row["extent"]
+            for s in states:
+                shares[s] += row[s]
+    log("  workers together: " + ", ".join(
+        f"{s} {shares[s] / extent:.4f}" for s in states)
+        + " (eval = task self time, sweep = blocked on the dispatcher, "
+        "idle = parked)")
+    # tracing overhead: one more untraced and one more traced mine after
+    # phase 3 (untraced) and the checked run (traced), so each side has
+    # an early and a late wall
+    walls = {"untraced": [untraced_wall], "traced": [met.wall_s]}
+    for side in ("untraced", "traced"):
+        again, m = repro_torch.mine(
+            bitmaps, min_support, device=dev, granularity="bucket",
+            policy="clustered", max_k=MAIN_MAX_K, representation="auto",
+            item_counts=counts, trace=Tracer() if side == "traced" else None)
+        if again != serial:
+            raise SystemExit(f"trace: the {side} rerun differs from "
+                             f"mine_serial")
+        walls[side].append(m.wall_s)
+    mean = {k: sum(v) / len(v) for k, v in walls.items()}
+    log(f"  tracing overhead (order U, T, U, T): untraced walls "
+        f"{[round(w, 3) for w in walls['untraced']]}, traced walls "
+        f"{[round(w, 3) for w in walls['traced']]}; means "
+        f"{mean['untraced']:.3f} and {mean['traced']:.3f} s "
+        f"({mean['traced'] - mean['untraced']:+.3f} s)")
+    disp = [e for e in events if e.lane == "dispatcher-0" and e.ph == "X"]
+    flush = [e.dur for e in disp if e.name == "flush"]
+    sync = [e.dur for e in disp if e.name == "h2d-sync"]
+    span = max(e.ts + e.dur for e in disp) - min(e.ts for e in disp)
+    log(f"  dispatcher-0: {len(flush)} flush spans, mean "
+        f"{1e3 * sum(flush) / len(flush):.4f} ms, "
+        f"{sum(flush) / span:.4f} of the lane's extent {span:.3f} s; "
+        f"{len(sync)} h2d-sync spans, mean "
+        f"{1e3 * sum(sync) / max(1, len(sync)):.4f} ms, "
+        f"{sum(sync) / sum(flush):.4f} of flush time; "
+        f"sync per flush {1e3 * sum(sync) / len(flush):.4f} ms")
+    return launches
+
+
+def phase_residency(dev, bitmaps, counts, min_support, serial):
+    """The phase-3 mine under ``arena="jax"`` and ``arena="numpy"``;
+    returns the launches of each run."""
+    import torch
+
+    import repro_torch
+    from repro_torch.core import join_backend
+    from repro_torch.core.tidlist import BitmapArena
+    from repro_torch.kernels.bitmap_join import ops as bj
+    from repro_torch.kernels.bitmap_join.ref import bitmap_join_many_ref
+    from repro_torch.kernels.gather_intersect import ops as gi
+    from repro_torch.kernels.gather_intersect.ref import (
+        gather_intersect_many_ref)
+    eager = BitmapArena.from_bitmaps(bitmaps, device=dev, backing="jax")
+    if eager.h2d_bytes != eager.nbytes_base:
+        raise SystemExit(f"residency: arena='jax' uploaded "
+                         f"{eager.h2d_bytes} B at load, not the base "
+                         f"payload {eager.nbytes_base} B")
+    log(f"residency: arena='jax' uploads the base payload at load: "
+        f"h2d_bytes={eager.h2d_bytes} == {eager.nbytes_base} ok")
+    del eager
+    gathered = {"bitmap_join_many": (bj, bitmap_join_many_ref),
+                "gather_intersect_many": (gi, gather_intersect_many_ref)}
+    entries = (*gathered, "bitmap_join_many_rows",
+               "gather_intersect_many_rows")
+
+    def run(backing, max_k):
+        """One mine with the backend's four kernel entries counted (and
+        the first gathered-form call's inputs kept)."""
+        calls, kept = collections.Counter(), {}
+        originals = {n: getattr(join_backend, n) for n in entries}
+
+        def wrap(name):
+            def call(*args):
+                calls[name] += 1
+                if name in gathered and name not in kept:
+                    kept[name] = tuple(a.clone() for a in args)
+                return originals[name](*args)
+            return call
+
+        for name in entries:
+            setattr(join_backend, name, wrap(name))
+        bj.launches = 0
+        gi.launches = 0
+        t0 = time.perf_counter()
+        try:
+            result, met = repro_torch.mine(
+                bitmaps, min_support, device=dev, granularity="bucket",
+                policy="clustered", max_k=max_k, representation="auto",
+                item_counts=counts, arena=backing)
+        finally:
+            for name in entries:
+                setattr(join_backend, name, originals[name])
+        launches = {"bitmap_join_many": bj.launches,
+                    "gather_intersect_many": gi.launches}
+        return result, met, time.perf_counter() - t0, launches, calls, kept
+
+    out = {}
+    for backing in ("jax", "numpy"):
+        max_k = BITMAP_MAX_K
+        while True:
+            result, met, wall, launches, calls, kept = run(backing, max_k)
+            if (backing == "jax" or launches["gather_intersect_many"]
+                    or max_k == MAIN_MAX_K):
+                break
+            log(f"residency[numpy]: max_k={max_k} launched no "
+                f"gather_intersect_many; raising max_k")
+            max_k += 1
+        want = {c: v for c, v in serial.items() if len(c) <= max_k}
+        if result != want:
+            raise SystemExit(f"residency[{backing}]: supports differ from "
+                             f"mine_serial")
+        suffix = "" if backing == "numpy" else "_rows"
+        other = "_rows" if backing == "numpy" else ""
+        used = tuple(calls[n + suffix] for n in gathered)
+        if (any(calls[n + other] for n in gathered) or used[0] == 0
+                or (met.sparse_sweeps and used[1] == 0)
+                or used != tuple(launches.values())):
+            raise SystemExit(f"residency[{backing}]: entry calls "
+                             f"{dict(calls)} against launches {launches}")
+        if backing == "jax" and met.h2d_bytes < bitmaps.nbytes:
+            raise SystemExit("residency[jax]: h2d below the base payload")
+        log(f"residency mine[bucket, auto, max_k={max_k}, arena={backing}]:"
+            f" wall_s={wall:.3f} flushes={met.flushes} "
+            f"h2d_bytes={met.h2d_bytes} sparse_sweeps={met.sparse_sweeps} "
+            f"dense_sweeps={met.dense_sweeps} "
+            f"launches={json.dumps(launches)} all through the "
+            f"{'gathered forms' if backing == 'numpy' else 'indexed entries'}"
+            f"; supports==mine_serial ok")
+        for name, args in kept.items():
+            module, plain = gathered[name]
+            got = getattr(module, name)(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, plain(*args)):
+                raise SystemExit(f"residency: {name} disagrees with its "
+                                 f"plain version at "
+                                 f"{[tuple(a.shape) for a in args]}")
+            log(f"  {name} gathered form at its first call of this mine "
+                f"{[tuple(a.shape) for a in args]}: equals its plain "
+                f"version ok")
+        out[backing] = launches
+    return out
+
+
+def phase_launcher():
+    """The launcher as a user runs it, in its own process; returns the
+    launches read from the flush spans of its trace."""
+    import os
+    trace = ROOT / "build" / "launcher.trace.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.fpm_mine", "--dataset",
+           "t10i4", "--policies", "cilk", "clustered", "--max-k",
+           str(MAIN_MAX_K), "--trace-summary", "--trace", str(trace)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=LAUNCHER_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    (ROOT / "build" / "launcher.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise SystemExit(f"launcher exited {proc.returncode}: "
+                         f"{proc.stderr[-2000:]}")
+    for line in proc.stdout.splitlines():
+        if line.startswith(("dataset=", "serial:", "cilk", "clustered")):
+            log(f"launcher| {line}")
+    with open(trace) as f:
+        doc = json.load(f)
+    flushes = [e["args"] for e in doc["traceEvents"]
+               if e.get("name") == "flush"]
+    launches = {"bitmap_join_many": sum(1 for a in flushes if a["dense"]),
+                "gather_intersect_many": sum(1 for a in flushes
+                                             if a["sparse"])}
+    if min(launches.values()) == 0:
+        raise SystemExit(f"launcher: a kernel never launched: {launches}")
+    log(f"launcher: exit 0 in {wall:.1f} s (both policies equal "
+        f"mine_serial); launches from its {len(flushes)} flush spans "
+        f"{json.dumps(launches)}; output in build/launcher.log")
+    return launches
+
+
 def phase_profile(dev, bitmaps, counts, min_support, granularity,
                   representation, max_k):
     """A rerun of a mining phase under torch.profiler: how much of its
@@ -708,8 +970,8 @@ def main() -> int:
             launches[name][phase] = n
 
     recorders = recs()
-    got, _ = phase_mine(dev, bitmaps, counts, min_support, "bucket",
-                        "auto", MAIN_MAX_K, serial, recorders)
+    got, main_met = phase_mine(dev, bitmaps, counts, min_support, "bucket",
+                               "auto", MAIN_MAX_K, serial, recorders)
     if min(got.values()) == 0:
         raise SystemExit(f"a kernel never launched on the main path: "
                          f"{got}")
@@ -734,6 +996,12 @@ def main() -> int:
         note(granularity, got)
     n, entry_inputs = phase_entry(dev, bitmaps, counts)
     note("entry", {"bitmap_join": n})
+    note("trace", phase_trace(dev, bitmaps, counts, min_support, serial,
+                              main_met.wall_s))
+    for backing, got in phase_residency(dev, bitmaps, counts, min_support,
+                                        serial).items():
+        note(f"residency-{backing}", got)
+    launcher_launches = phase_launcher()
 
     for granularity, representation, max_k in (
             ("bucket", "auto", MAIN_MAX_K),
@@ -743,6 +1011,9 @@ def main() -> int:
         phase_profile(dev, bitmaps, counts, min_support, granularity,
                       representation, max_k)
     rows = report(recorders, df_recorders, entry_inputs, launches, worst)
+    for row in rows:
+        row["launcher_launches_from_trace"] = launcher_launches.get(
+            row["name"], 0)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -31,9 +31,11 @@ and child handoffs are refcounted arena rows, and the arena's device
 mirror is synced incrementally — repeated sweeps cost ~one initial
 upload (``MiningMetrics.h2d_bytes``) instead of one upload per sweep.
 
-Multi-device meshes, multi-host runs, streaming deltas and tracing
-belong to later slices of the port and raise ``NotImplementedError``
-here.
+``mine(trace=Tracer())`` records the run's timeline (repro_torch.obs):
+worker task/steal/park spans, dispatcher flush spans, the arena's
+mirror syncs and the driver's level spans. Multi-device meshes,
+multi-host runs and streaming deltas belong to later slices of the port
+and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -231,15 +233,22 @@ class EngineRuntime:
     def __init__(self, store: BitmapArena, *, policy: str = "clustered",
                  n_workers: int = 8, granularity: str = "bucket",
                  backend: str = "auto", max_batch: int = MAX_BATCH,
-                 flush_us: float = FLUSH_US):
+                 flush_us: float = FLUSH_US, tracer=None):
         self.store = store
         self.backend = resolve_backend(backend)
+        # observability (repro_torch.obs): one tracer threaded through
+        # every layer this runtime owns — scheduler workers, the
+        # dispatcher thread and the arena record into its per-thread
+        # rings. None keeps every site on the disabled fast path.
+        if tracer is not None:
+            store.tracer = tracer
         self.dispatchers = [SweepDispatcher(
             store, self.backend, n_clients=n_workers,
-            max_batch=max_batch, flush_us=flush_us)]
+            max_batch=max_batch, flush_us=flush_us, tracer=tracer)]
         self.sched = TaskScheduler(
             n_workers,
-            make_policy(policy, n_workers, _cluster_fn(granularity, policy)))
+            make_policy(policy, n_workers, _cluster_fn(granularity, policy)),
+            tracer=tracer)
         # pull-based snapshot API: live gauges, readable any time
         self.registry = MetricsRegistry()
         self.registry.register("scheduler", self.sched.merged_stats)
@@ -263,7 +272,8 @@ class MiningRun:
                  n_workers: int, granularity: str, cache_size: int,
                  backend: str = "auto", max_batch: int = MAX_BATCH,
                  flush_us: float = FLUSH_US,
-                 representation: str = "auto", item_counts=None):
+                 representation: str = "auto", item_counts=None,
+                 tracer=None):
         if granularity not in GRANULARITIES:
             raise ValueError(
                 f"granularity must be one of {GRANULARITIES}, "
@@ -275,7 +285,7 @@ class MiningRun:
         self.runtime = EngineRuntime(
             store, policy=policy, n_workers=n_workers,
             granularity=granularity, backend=backend,
-            max_batch=max_batch, flush_us=flush_us)
+            max_batch=max_batch, flush_us=flush_us, tracer=tracer)
         self.store = store
         self.granularity = granularity
         self.cache_size = cache_size
@@ -342,7 +352,7 @@ def mine(bitmaps: np.ndarray, min_support: int, *,
          granularity: str = "bucket", backend: str = "auto",
          max_batch: int = MAX_BATCH, flush_us: float = FLUSH_US,
          representation: str = "auto", item_counts=None,
-         mesh=None, hosts: int = 1, trace=None,
+         arena: str = "auto", mesh=None, hosts: int = 1, trace=None,
          ) -> Tuple[Dict[Itemset, int], MiningMetrics]:
     """bitmaps: [n_items, W] uint32 packed TID bitmaps.
 
@@ -365,10 +375,16 @@ def mine(bitmaps: np.ndarray, min_support: int, *,
     (``pack_database(..., return_counts=True)``).
     ``max_batch``/``flush_us`` tune the sweep dispatcher's coalescing
     (requests per launch / straggler wait).
+    ``arena`` picks the bitmap store's device residency ("auto": lazy
+    device mirror; "jax": eager upload to ``device``, named as in the
+    reference engine; "numpy": host-only — the kernel backend then
+    gathers and uploads each batch's rows, the transfer-bound baseline).
+    ``trace`` attaches a :class:`repro_torch.obs.Tracer`: workers, the
+    dispatcher, the arena and the driver record span timelines into it
+    (export with ``repro_torch.obs.write_chrome_trace``; None = off).
 
-    ``mesh``, ``hosts`` and ``trace`` are the reference engine's options
-    that later slices of the port cover; here they raise
-    ``NotImplementedError``."""
+    ``mesh`` and ``hosts`` are the reference engine's options that later
+    slices of the port cover; here they raise ``NotImplementedError``."""
     dev = resolve_device(device)
     if mesh is not None:
         raise NotImplementedError("mesh= comes with the port's "
@@ -376,10 +392,7 @@ def mine(bitmaps: np.ndarray, min_support: int, *,
     if hosts > 1:
         raise NotImplementedError("hosts > 1 comes with the port's "
                                   "cluster slice")
-    if trace is not None:
-        raise NotImplementedError("trace= comes with the port's "
-                                  "tracing slice")
-    store = BitmapArena.from_bitmaps(bitmaps, device=dev)
+    store = BitmapArena.from_bitmaps(bitmaps, device=dev, backing=arena)
     t0 = time.perf_counter()
     # level 1 before the runtime spins up worker/dispatcher threads:
     # if it raises there is nothing to tear down
@@ -390,7 +403,7 @@ def mine(bitmaps: np.ndarray, min_support: int, *,
                     granularity=granularity, cache_size=cache_size,
                     backend=backend, max_batch=max_batch,
                     flush_us=flush_us, representation=representation,
-                    item_counts=item_counts)
+                    item_counts=item_counts, tracer=trace)
     run.metrics.frequent += len(frequent)
     try:
         mine_more(run, min_support, max_k, result, frequent)
@@ -408,6 +421,10 @@ def mine_more(run: MiningRun, min_support: int, max_k: int,
     if delta is not None:
         raise NotImplementedError("delta= comes with the port's "
                                   "streaming slice")
+    tr = run.sched.tracer
+    if tr is not None:
+        # whichever thread drives this run gets the "driver" lane
+        tr.set_lane("driver", sort_index=0)
     if run.granularity == "depth-first":
         _mine_depth_first(run.store, run.dispatchers[0], min_support,
                           max_k, run.sched, run.metrics, result, frequent,
@@ -561,7 +578,9 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
         return collect
 
     k = 2
+    tr = sched.tracer
     while frequent and k <= max_k:
+        t_level = tr.now() if tr is not None else 0.0
         # detached subtrees' itemsets never rejoin ``frequent``, so the
         # Apriori prune needs the full known-frequent membership (the
         # result dict is complete here: the level barrier below also
@@ -584,6 +603,11 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
                 frequent.append(c)
         frequent.sort()
         metrics.frequent += len(frequent)
+        if tr is not None:
+            # driver-lane level span: the barrier-to-barrier extent
+            tr.span(f"level-{k}", t_level, cat="level",
+                    args={"candidates": len(cands),
+                          "frequent": len(frequent)})
         k += 1
 
 

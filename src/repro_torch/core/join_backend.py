@@ -23,9 +23,11 @@ Backends implement the same batched API:
   torch   the kernel backend: dense prefixes go to ``bitmap_join_many``
           and sparse (tid-list/diffset) prefixes to
           ``gather_intersect_many``, whose indexed entries read prefix and
-          extension rows from the arena's mirror by handle. On a CUDA
-          arena the wrappers launch the CUDA kernels; on a CPU arena they
-          run their plain versions.
+          extension rows from the arena's mirror by handle. An arena with
+          no mirror (backing "numpy") has each batch's rows gathered on
+          the host and uploaded per launch to the kernels' gathered
+          forms. On a CUDA arena the wrappers launch the CUDA kernels; on
+          a CPU arena they run their plain versions.
 """
 from __future__ import annotations
 
@@ -40,9 +42,10 @@ import torch
 
 from repro_torch.core import tidlist
 from repro_torch.core.tidlist import BitmapArena, pow2
-from repro_torch.kernels.bitmap_join.ops import bitmap_join_many_rows
+from repro_torch.kernels.bitmap_join.ops import (bitmap_join_many,
+                                                 bitmap_join_many_rows)
 from repro_torch.kernels.gather_intersect.ops import (
-    gather_intersect_many_rows)
+    gather_intersect_many, gather_intersect_many_rows)
 from repro_torch.obs import schema as obs_schema
 
 # Dispatcher defaults: how many requests one kernel launch may carry,
@@ -178,7 +181,15 @@ class TorchBackend(JoinBackend):
     reused and grown by the dispatcher thread. A launch covers the real
     batch: pad lanes carry -1 and read nothing, and no request is padded
     in. Only the sparse path's h2d bill keeps the reference's padded
-    [B', S'] size (``E_PAD_FLOOR``), computed, not shipped."""
+    [B', S'] size (``E_PAD_FLOOR``), computed, not shipped.
+
+    An arena without a mirror (backing "numpy") takes the host-gather
+    path instead: the batch's rows are gathered on the host into the
+    reference's padded ``[B', E', W]`` shape (pad requests and lanes
+    name row 0, and their counts are sliced off), written straight into
+    the same staging buffer, shipped with the one copy and swept by the
+    gathered forms ``bitmap_join_many`` / ``gather_intersect_many``; the
+    rows are billed to ``h2d_bytes`` as the reference bills them."""
 
     name = "torch"
 
@@ -242,16 +253,49 @@ class TorchBackend(JoinBackend):
         for i, r in enumerate(requests):
             eidx[i, :len(r.ext_handles)] = r.ext_handles
 
+    @classmethod
+    def _gather_exts(cls, arena, requests, bp, ep, out):
+        """The host rows of every request's extensions, padded to
+        [bp, ep], into the staged view ``out``. Pad lanes carry -1,
+        which ``take``'s clip mode reads as row 0; their counts are
+        sliced off."""
+        eidx = np.empty((bp, ep), np.int64)
+        cls._fill_eidx(eidx, requests)
+        cls._gather_into(arena, eidx.ravel(), out)
+
+    @staticmethod
+    def _gather_into(arena, handles, out):
+        """Host rows of ``handles`` into the staged uint32 view ``out``."""
+        np.take(arena.rows_view(), handles, axis=0, mode="clip",
+                out=out.view(np.uint32).reshape(len(handles), -1))
+
     def _sweep_dense(self, arena, requests):
         b = len(requests)
         e = max(len(r.ext_handles) for r in requests)
         mirror = arena.device_rows()
+        if mirror is None:
+            return self._sweep_dense_gathered(arena, requests, e)
         host = self._staged(mirror.device, b + b * e)
         host[:b] = [r.prefix_handle for r in requests]
         self._fill_eidx(host[b:].reshape(b, e), requests)
         return self._launch(mirror.device, b + b * e, lambda idx: (
             bitmap_join_many_rows(mirror, idx[:b], mirror,
                                   idx[b:].view(b, e), arena.n_words)))
+
+    def _sweep_dense_gathered(self, arena, requests, e):
+        """Host-gather dense sweep: ``[prefixes [B', W] | exts [B', E',
+        W]]`` staged as one array, billed ``(B' + B'·E')·W·4`` bytes."""
+        b, w = len(requests), arena.n_words
+        bp, ep = pow2(b), pow2(e, lo=E_PAD_FLOOR)
+        pidx = np.zeros(bp, np.int64)
+        pidx[:b] = [r.prefix_handle for r in requests]
+        n = bp * w + bp * ep * w
+        host = self._staged(arena.device, n)
+        self._gather_into(arena, pidx, host[:bp * w])
+        self._gather_exts(arena, requests, bp, ep, host[bp * w:])
+        arena.count_h2d((bp + bp * ep) * w * 4)
+        return self._launch(arena.device, n, lambda x: bitmap_join_many(
+            x[:bp * w].view(bp, w), x[bp * w:].view(bp, ep, w)))
 
     def _sweep_sparse(self, arena, requests):
         """Sparse sub-batch: prefixes are tid/diffset payloads, shipped
@@ -261,8 +305,11 @@ class TorchBackend(JoinBackend):
         e = max(len(r.ext_handles) for r in requests)
         payloads = [arena.tids_of(r.prefix_handle) for r in requests]
         s = max(1, max(len(t) for t in payloads))
-        arena.count_h2d(pow2(b) * pow2(s, lo=E_PAD_FLOOR) * 4)
         mirror = arena.device_rows()
+        if mirror is None:
+            return self._sweep_sparse_gathered(arena, requests, payloads,
+                                               e, s)
+        arena.count_h2d(pow2(b) * pow2(s, lo=E_PAD_FLOOR) * 4)
         n = b * e + b + b * s
         host = self._staged(mirror.device, n)
         self._fill_eidx(host[:b * e].reshape(b, e), requests)
@@ -276,6 +323,23 @@ class TorchBackend(JoinBackend):
                 idx[b * e + b:].view(b, s), idx[b * e:b * e + b], mirror,
                 idx[:b * e].view(b, e), arena.n_words)))
 
+    def _sweep_sparse_gathered(self, arena, requests, payloads, e, s):
+        """Host-gather sparse sweep: ``[tids [B', S'] | exts [B', E',
+        W]]`` staged as one array (tids padded with -1), billed
+        ``(B'·E'·W + B'·S')·4`` bytes."""
+        b, w = len(requests), arena.n_words
+        bp, ep, sp = pow2(b), pow2(e, lo=E_PAD_FLOOR), pow2(s, lo=E_PAD_FLOOR)
+        n = bp * sp + bp * ep * w
+        host = self._staged(arena.device, n)
+        tids = host[:bp * sp].reshape(bp, sp)
+        tids.fill(-1)
+        for i, t in enumerate(payloads):
+            tids[i, :len(t)] = t
+        self._gather_exts(arena, requests, bp, ep, host[bp * sp:])
+        arena.count_h2d((bp * ep * w + bp * sp) * 4)
+        return self._launch(arena.device, n, lambda x: gather_intersect_many(
+            x[:bp * sp].view(bp, sp), x[bp * sp:].view(bp, ep, w)))
+
 
 _REGISTRY: Dict[str, Callable[[], JoinBackend]] = {
     "numpy": NumpyBackend,
@@ -283,15 +347,32 @@ _REGISTRY: Dict[str, Callable[[], JoinBackend]] = {
 }
 
 
+def get_backend(name: str) -> JoinBackend:
+    """A new backend by name. Each call builds its own instance: a
+    ``TorchBackend`` owns staging buffers that one dispatcher thread
+    reuses between launches, so two runs must not share one."""
+    if name not in _REGISTRY:
+        raise ValueError(
+            f"unknown join backend {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]()
+
+
+def available_backends(device: "torch.device | str | None" = None
+                       ) -> List[str]:
+    """Backends that can execute here: ``numpy`` always, and the kernel
+    backend ``torch`` when a CUDA device is present or the caller asks
+    for the CPU (where it runs the kernels' plain versions)."""
+    names = ["numpy"]
+    if (device is not None and torch.device(device).type == "cpu") or \
+            torch.cuda.is_available():
+        names.append("torch")
+    return names
+
+
 def resolve_backend(spec: str = "auto") -> JoinBackend:
     """"auto" is the kernel backend, which runs on whatever device the
     arena lives on; "numpy" runs only when named."""
-    if spec == "auto":
-        spec = "torch"
-    if spec not in _REGISTRY:
-        raise ValueError(
-            f"unknown join backend {spec!r}; known: {sorted(_REGISTRY)}")
-    return _REGISTRY[spec]()
+    return get_backend("torch" if spec == "auto" else spec)
 
 
 class SweepDispatcher:
@@ -321,8 +402,8 @@ class SweepDispatcher:
                  tracer=None, trace_pid: int = 0):
         self.arena = arena
         self.backend = backend
-        # observability: None = off (the tracer is a later slice; the
-        # guards stay so it slots in)
+        # observability: None = off; spans record flush formation on
+        # the dispatcher lane and blocking sweeps on the caller's lane
         self.tracer = tracer
         self.trace_pid = trace_pid
         self.n_clients = max(1, n_clients)
@@ -362,6 +443,7 @@ class SweepDispatcher:
             return self.submit(prefix_handle, ext_handles).result()
         t0 = tr.now()
         counts = self.submit(prefix_handle, ext_handles).result()
+        # caller-side wait: nests inside the worker's task span
         tr.span("sweep", t0, cat="sweep", args={"ext": len(ext_handles)})
         return counts
 
@@ -385,13 +467,18 @@ class SweepDispatcher:
                 raise RuntimeError("dispatcher is stopped")
             self.flushes += 1
             self.requests += 1
+        sparse = req.is_sparse(self.arena)
         t0 = time.perf_counter()
-        if req.is_sparse(self.arena):
+        if sparse:
             out = self.backend.sweep_sparse_bits(self.arena, req)
         else:
             out = self.backend.sweep_many(self.arena, [req])[0], None
         with self._cv:
             self.sweep_s += time.perf_counter() - t0
+        if self.tracer is not None:
+            self.tracer.span("sweep", t0, cat="sweep",
+                             args={"ext": len(req.ext_handles),
+                                   "sparse": sparse})
         return out
 
     @property
@@ -407,6 +494,18 @@ class SweepDispatcher:
              "queue_flushes": self.queue_flushes,
              "queue_requests": self.queue_requests,
              "sweep_s": self.sweep_s})
+
+    def _flush_args(self, batch: Sequence[SweepRequest]
+                    ) -> Dict[str, float]:
+        """Span payload for one flush: occupancy, an upper-bound byte
+        figure (rows × full arena width) and the dense/sparse split.
+        Only runs when a tracer is attached."""
+        arena = self.arena
+        rows = sum(1 + len(r.ext_handles) for r in batch)
+        sparse = sum(1 for r in batch if r.is_sparse(arena))
+        return {"requests": len(batch), "occupancy": len(batch),
+                "rows": rows, "batch_bytes": rows * arena.n_words * 4,
+                "sparse": sparse, "dense": len(batch) - sparse}
 
     # -------------------------------------------------------------- loop --
     def _loop(self):
@@ -440,10 +539,8 @@ class SweepDispatcher:
                 with self._cv:
                     self.sweep_s += time.perf_counter() - t0
                 if tr is not None:
-                    sparse = sum(1 for r in batch if r.is_sparse(self.arena))
                     tr.span("flush", t0, cat="flush",
-                            args={"requests": len(batch), "sparse": sparse,
-                                  "dense": len(batch) - sparse})
+                            args=self._flush_args(batch))
             except BaseException as e:  # noqa: BLE001 - resolve futures:
                 for r in batch:         # a swallowed error would deadlock
                     r.future.set_exception(e)   # every blocked worker

@@ -11,6 +11,7 @@ plain versions work on int32 and read the words as unsigned.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -81,6 +82,16 @@ def pack_database(db: Sequence[Sequence[int]], n_items: int,
     if return_counts:
         return out, counts
     return out
+
+
+def pack_bool(bits: np.ndarray) -> np.ndarray:
+    """[I, T] bool -> [I, W] uint32 (little-endian bit order per word)."""
+    i, t = bits.shape
+    w = n_words(t)
+    padded = np.zeros((i, w * WORD), dtype=bool)
+    padded[:, :t] = bits
+    packed = np.packbits(padded.reshape(i, w, WORD)[:, :, ::-1], axis=-1)
+    return packed.view(">u4").astype(np.uint32).reshape(i, w)
 
 
 def unpack_bool(packed: np.ndarray, n_transactions: int) -> np.ndarray:
@@ -208,6 +219,11 @@ def sorted_difference(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 # BitmapArena: the home of every TID bitmap, with a device mirror
 # ---------------------------------------------------------------------------
 
+# Device residency of an arena's rows (``BitmapArena(backing=)``). The
+# names are the reference engine's, so its calls port unchanged; "jax"
+# means an eager upload to the arena's torch device.
+ARENA_BACKINGS = ("auto", "numpy", "jax")
+
 
 class BitmapArena:
     """Append-only ``[N, W]`` uint32 row store with integer handles.
@@ -230,12 +246,27 @@ class BitmapArena:
     device mirror keeps it zeroed.
 
     The device mirror (:meth:`device_rows`) is one int32 tensor on
-    ``device``, created at the first call and kept in sync
-    incrementally: only rows appended or recycled since the last sync
-    cross host→device, and their payload bytes accumulate in
-    ``h2d_bytes``. Host-only backends never call it. ``device=None``
-    means the CUDA card and raises ``RuntimeError`` when there is none;
-    the mirror lives on the CPU only when the caller passes ``"cpu"``.
+    ``device``, kept in sync incrementally: only rows appended or
+    recycled since the last sync cross host→device, and their payload
+    bytes accumulate in ``h2d_bytes``. Host-only backends never call it.
+    ``device=None`` means the CUDA card and raises ``RuntimeError`` when
+    there is none; the mirror lives on the CPU only when the caller
+    passes ``"cpu"``.
+
+    Device residency (``backing``, one of ``ARENA_BACKINGS``):
+      "auto"   the mirror is created lazily by the first
+               :meth:`device_rows` call;
+      "jax"    the same mirror, with the base rows uploaded eagerly at
+               load (the reference engine's name for it; here it means
+               an eager upload to ``device``);
+      "numpy"  host-only: no mirror, :meth:`device_rows` returns None
+               and the kernel backend gathers each batch's rows on the
+               host and uploads them per launch (the transfer-bound
+               baseline).
+
+    ``tracer`` is None (tracing off) unless an engine attaches one; a
+    mirror sync that moves payload then records an ``h2d-sync`` span,
+    and :meth:`count_h2d` an ``h2d`` instant, on the calling lane.
 
     The arena holds one shard and one segment. The row-creating calls
     take the reference's ``shard=`` and ``cover=`` arguments so the
@@ -252,8 +283,15 @@ class BitmapArena:
 
     def __init__(self, n_words_: int,
                  device: "torch.device | str | None" = None,
-                 capacity: int = 64):
+                 capacity: int = 64, backing: str = "auto"):
+        if backing not in ARENA_BACKINGS:
+            raise ValueError(
+                f"arena backing must be one of {ARENA_BACKINGS}, "
+                f"got {backing!r}")
         self.device = resolve_device(device)
+        self.backing = backing
+        # observability: None = off (the engines attach a tracer)
+        self.tracer = None
         cap = max(capacity, 1)
         self._n_words = n_words_
         self._store = np.zeros((cap, n_words_), np.uint32)
@@ -300,16 +338,27 @@ class BitmapArena:
     # ------------------------------------------------------------- load --
     @classmethod
     def from_bitmaps(cls, bitmaps: np.ndarray,
-                     device: "torch.device | str | None" = None
-                     ) -> "BitmapArena":
+                     device: "torch.device | str | None" = None,
+                     backing: str = "auto") -> "BitmapArena":
         """Load packed item bitmaps as the pinned base rows (handle ==
-        item id). One copy, once."""
+        item id). One copy, once; ``backing="jax"`` also uploads them to
+        the mirror now."""
         n, w = bitmaps.shape
-        arena = cls(w, device, capacity=max(64, 2 * n))
+        arena = cls(w, device, capacity=max(64, 2 * n), backing=backing)
         arena._store[:n] = bitmaps
         arena._refs[:n] = 1
         arena.n_rows = arena.n_base = n
+        if backing == "jax":
+            arena.device_rows()
         return arena
+
+    @classmethod
+    def from_database(cls, db: Sequence[Sequence[int]], n_items: int,
+                      device: "torch.device | str | None" = None,
+                      backing: str = "auto") -> "BitmapArena":
+        """pack_database straight into the arena (no intermediate)."""
+        return cls.from_bitmaps(pack_database(db, n_items), device,
+                                backing)
 
     # ------------------------------------------------------ row lifecycle --
     def _alloc_slot(self) -> int:
@@ -424,6 +473,9 @@ class BitmapArena:
     def rep_of(self, handle: int) -> int:
         """REP_BITMAP / REP_TIDLIST / REP_DIFFSET tag of a row."""
         return int(self._rep[handle])
+
+    def rep_name(self, handle: int) -> str:
+        return REP_NAMES[self.rep_of(handle)]
 
     def cover_of(self, handle: int) -> int:
         """Segments a row covers: always the one segment here."""
@@ -541,14 +593,39 @@ class BitmapArena:
         """Zero-copy [n_rows, n_words] view of the store."""
         return self._store[:self.n_rows]
 
+    def gather(self, handles: Sequence[int]) -> np.ndarray:
+        """[len(handles), n_words] rows: a zero-copy slice when the
+        handles are consecutive, a fancy-index copy otherwise."""
+        h0 = handles[0]
+        n = len(handles)
+        if all(handles[i] == h0 + i for i in range(1, n)):
+            return self._store[h0:h0 + n]
+        return self._store[list(handles)]
+
+    @property
+    def live_bytes_extra(self) -> int:
+        """Retained non-base payload: dense rows at full row width,
+        sparse rows at their actual tid-array size."""
+        return ((self.live_extra - self.sparse_live) * self._n_words * 4
+                + self.sparse_bytes_live)
+
     @property
     def peak_bytes_extra(self) -> int:
         return self.peak_live_extra * self._n_words * 4
 
+    @property
+    def nbytes_base(self) -> int:
+        return self.n_base * self._n_words * 4
+
     # ------------------------------------------------------------ device --
-    def device_rows(self) -> torch.Tensor:
+    @property
+    def device_enabled(self) -> bool:
+        return self.backing != "numpy"
+
+    def device_rows(self) -> Optional[torch.Tensor]:
         """The device mirror ``[n_rows, mirror_words]`` int32, synced
-        incrementally (only the dispatcher thread calls this).
+        incrementally (only the dispatcher thread calls this); None for
+        a host-only ("numpy") backing.
 
         Rows appended since the last sync and recycled slots are written;
         a live word-column row among them is billed ``4 * n_words`` bytes
@@ -556,6 +633,10 @@ class BitmapArena:
         unbilled. The mirror is ONE capacity-doubling buffer updated in
         place with ``index_copy_``: a sync moves only the changed rows,
         where a functional update would copy the whole mirror."""
+        if not self.device_enabled:
+            return None
+        tr = self.tracer
+        t_sync = time.perf_counter() if tr is not None else 0.0
         with self._lock:
             n = self.n_rows
             todo = sorted(self._stale.union(range(self._dev_n, n)))
@@ -580,15 +661,28 @@ class BitmapArena:
             idx = torch.as_tensor(todo, dtype=torch.int64).to(self.device)
             mirror[:, :self._n_words].index_copy_(
                 0, idx, to_device_words(payload, self.device))
-            self.count_h2d(len(billed) * self._n_words * 4)
+        if billed:
+            nbytes = len(billed) * self._n_words * 4
+            with self._lock:
+                self.h2d_bytes += nbytes
+            if tr is not None:
+                # only syncs that moved payload get a span: the
+                # steady-state no-op sync stays invisible
+                tr.span("h2d-sync", t_sync, cat="arena",
+                        args={"shard": 0, "segment": 0, "bytes": nbytes})
         return mirror[:n]
 
     def count_h2d(self, nbytes: int) -> None:
-        """Add host→device payload bytes (mirror syncs, and the sparse
-        sweeps' per-launch tid arrays)."""
+        """Add the host→device payload bytes a backend ships per launch
+        (the sparse sweeps' tid arrays, the host-gather path's rows);
+        traced as an ``h2d`` instant."""
         with self._lock:
             self.h2d_bytes += nbytes
+        if self.tracer is not None:
+            self.tracer.instant("h2d", cat="arena",
+                                args={"bytes": nbytes})
 
     def __repr__(self) -> str:
         return (f"<BitmapArena rows={self.n_rows} base={self.n_base} "
-                f"live_extra={self.live_extra} device={self.device}>")
+                f"live_extra={self.live_extra} backing={self.backing} "
+                f"device={self.device}>")

@@ -1,0 +1,170 @@
+"""FPM mining launcher of the PyTorch/CUDA port — the paper's experiment
+end to end: a host ``mine_serial`` reference, then one mine per
+scheduling policy through ``repro_torch.mine``, each checked equal to
+the reference.
+
+Example (clustered against Cilk-style scheduling on the card):
+    PYTHONPATH=src python -m repro_torch.launch.fpm_mine --dataset t10i4 \
+        --workers 8 --policies cilk clustered --max-k 8 --trace-summary
+
+The mines run on the CUDA card unless ``--device cpu`` is given; without
+a card and without ``--device`` the launcher raises ``RuntimeError``
+before it builds any data.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional, Sequence
+
+from repro_torch.core.buckets import REPRESENTATIONS
+from repro_torch.core.fpm import GRANULARITIES, mine, mine_serial
+from repro_torch.core.tidlist import (ARENA_BACKINGS, pack_database,
+                                      resolve_device)
+from repro_torch.data.transactions import PROFILES, load
+from repro_torch.obs import Tracer, summary_table, write_chrome_trace
+
+# flags of the reference launcher whose modes later slices of the port
+# bring, and the slice that brings each
+LATER_SLICES = {"mesh": "multi-device", "hosts": "cluster",
+                "stream": "streaming", "serve": "streaming"}
+
+
+def _finish_trace(args, tracer, wall_s: float) -> None:
+    """Flush the run's tracer: Chrome-trace JSON for ``--trace`` (one
+    lane per worker/dispatcher, loadable at https://ui.perfetto.dev)
+    and the terminal time-in-state table for ``--trace-summary``."""
+    if tracer is None:
+        return
+    if args.trace:
+        write_chrome_trace(tracer, args.trace)
+        print(f"trace: wrote {args.trace} "
+              f"({len(tracer.events())} events) — open in "
+              f"https://ui.perfetto.dev")
+    if args.trace_summary:
+        print(summary_table(tracer, wall_s))
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.fpm_mine")
+    ap.add_argument("--dataset", default="chess", choices=list(PROFILES))
+    ap.add_argument("--workers", type=int, default=8)
+    ap.add_argument("--policies", nargs="+",
+                    default=["cilk", "clustered"])
+    ap.add_argument("--granularity", default="bucket",
+                    choices=list(GRANULARITIES),
+                    help="task grain: bucket (level-sync sweep), "
+                         "candidate (scalar joins), depth-first "
+                         "(barrier-free class recursion) or auto")
+    ap.add_argument("--representation", default="auto",
+                    choices=list(REPRESENTATIONS),
+                    help="row representation: bitmap (word-columns "
+                         "only), sparse (force tid-list/diffset rows), "
+                         "auto (density-driven per-subtree choice)")
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "numpy", "torch"],
+                    help="join backend: auto (= torch, the kernel "
+                         "backend) or numpy (the host backend)")
+    ap.add_argument("--device", default=None,
+                    help="where the arena mirror lives and the kernels "
+                         "run: the CUDA card by default, 'cpu' for the "
+                         "kernels' plain versions on the host")
+    ap.add_argument("--arena", default="auto", choices=list(ARENA_BACKINGS),
+                    help="bitmap arena backing: auto (lazy device "
+                         "mirror), jax (eager upload to the device), "
+                         "numpy (host-only; the kernel backend re-uploads "
+                         "per batch — the transfer-bound baseline)")
+    ap.add_argument("--max-batch", type=int, default=32,
+                    help="sweep dispatcher: max requests per batched "
+                         "kernel launch")
+    ap.add_argument("--flush-us", type=float, default=200.0,
+                    help="sweep dispatcher: µs to wait for straggler "
+                         "requests before flushing a partial batch")
+    ap.add_argument("--support", type=float, default=None,
+                    help="override the profile's min-support fraction")
+    ap.add_argument("--max-k", type=int, default=6)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="record a time-resolved trace of the run "
+                         "(task/flush/steal spans, one lane per "
+                         "worker) and write Chrome trace-event JSON "
+                         "loadable in Perfetto")
+    ap.add_argument("--trace-summary", action="store_true",
+                    help="print the per-worker time-in-state table "
+                         "(sweep/eval/idle/steal) after the run; "
+                         "implies tracing even without --trace")
+    for flag, slice_ in LATER_SLICES.items():
+        ap.add_argument(f"--{flag}", type=int, default=0, metavar="N",
+                        help=f"the reference launcher's {flag} mode; the "
+                             f"port's {slice_} slice brings it")
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = parse_args(argv)
+    for flag, slice_ in LATER_SLICES.items():
+        # as in the reference launcher, --hosts 1 is one process
+        if getattr(args, flag) > (1 if flag == "hosts" else 0):
+            raise NotImplementedError(
+                f"--{flag} comes with the port's {slice_} slice")
+    device = resolve_device(args.device)
+
+    db, prof = load(args.dataset, args.seed)
+    n_items = (prof.n_dense_items if prof.kind == "dense"
+               else prof.n_items)
+    bitmaps, item_counts = pack_database(db, n_items, return_counts=True)
+    frac = args.support if args.support is not None else prof.support
+    ms = max(1, int(frac * len(db)))
+    print(f"dataset=synth:{args.dataset} |D|={len(db)} items={n_items} "
+          f"min_support={ms} ({frac:.4f}) device={device}")
+
+    t0 = time.time()
+    ref = mine_serial(bitmaps, ms, max_k=args.max_k)
+    t_serial = time.time() - t0
+    print(f"serial: {len(ref)} frequent itemsets in {t_serial:.2f}s")
+
+    tracer = (Tracer() if (args.trace or args.trace_summary)
+              else None)
+    traced_wall = 0.0
+    for policy in args.policies:
+        res, met = mine(bitmaps, ms, device=device, policy=policy,
+                        n_workers=args.workers, max_k=args.max_k,
+                        granularity=args.granularity,
+                        backend=args.backend, arena=args.arena,
+                        max_batch=args.max_batch, flush_us=args.flush_us,
+                        representation=args.representation,
+                        item_counts=item_counts, trace=tracer)
+        traced_wall += met.wall_s
+        if res != ref:
+            raise SystemExit(f"{policy} result differs from mine_serial")
+        s = met.scheduler
+        line = (f"{policy:10s} wall={met.wall_s:6.2f}s "
+                f"speedup={t_serial / met.wall_s:5.2f}x "
+                f"cache_hit={met.cache_hit_rate:5.1%} "
+                f"steals={int(s['steals']):6d} "
+                f"tasks/steal={s['tasks_per_steal']:5.2f} "
+                f"bucket_switches={int(s['bucket_switches']):5d} "
+                f"frequent={len(res)}")
+        if met.flushes:
+            line += (f" batch_occ={met.batch_occupancy:4.2f} "
+                     f"flushes={met.flushes} h2d={met.h2d_bytes}B")
+        if args.granularity == "depth-first":
+            line += (f" peak_retained={met.peak_retained_bitmaps}"
+                     f" ({met.peak_bytes_retained} B)")
+        if met.sparse_sweeps or met.sparse_rows:
+            line += (f"\n{'':10s} rep[{met.representation}]: "
+                     f"sweeps dense={met.dense_sweeps} "
+                     f"sparse={met.sparse_sweeps} "
+                     f"sparse_bytes={met.sparse_bytes_swept}B "
+                     f"rows={met.sparse_rows} "
+                     f"picks={met.rep_picks} "
+                     f"densify={met.densify_ops}"
+                     f"/{met.densify_bytes}B "
+                     f"sparsify={met.sparsify_ops}"
+                     f"/{met.sparsify_bytes}B")
+        print(line, flush=True)
+    _finish_trace(args, tracer, traced_wall)
+
+
+if __name__ == "__main__":
+    main()

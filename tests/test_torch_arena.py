@@ -254,3 +254,171 @@ def test_materialized_rows_bill_h2d_like_reference():
                     from_device_words(mirror[hp, :6]), port.row(hp))
     assert port.h2d_bytes > base.nbytes
     assert port.peak_live_extra == ref.peak_live_extra
+
+
+# ------------------------------------------------------------ residency
+@pytest.mark.parametrize("backing", ["auto", "jax", "numpy"])
+def test_backings_place_the_mirror_like_reference(backing):
+    base = words((5, 3))
+    port = BitmapArena.from_bitmaps(base, device="cpu", backing=backing)
+    ref = rtl.BitmapArena.from_bitmaps(base, backing=backing)
+    assert port.backing == backing
+    assert port.device_enabled == ref.device_enabled == (backing != "numpy")
+    assert port.h2d_bytes == ref.h2d_bytes == (
+        5 * 3 * 4 if backing == "jax" else 0)
+    mirror = port.device_rows()
+    ref.device_rows()
+    assert port.h2d_bytes == ref.h2d_bytes
+    if backing == "numpy":
+        assert mirror is None and port.h2d_bytes == 0
+    else:
+        np.testing.assert_array_equal(from_device_words(mirror[:, :3]), base)
+
+
+def test_bad_backing_raises_value_error():
+    for make in (lambda: BitmapArena(3, device="cpu", backing="cuda"),
+                 lambda: BitmapArena.from_bitmaps(words((2, 2)),
+                                                  device="cpu",
+                                                  backing="torch")):
+        with pytest.raises(ValueError, match="arena backing must be one of"):
+            make()
+    with pytest.raises(ValueError, match="arena backing"):
+        rtl.BitmapArena(3, backing="cuda")
+    assert ttl.ARENA_BACKINGS == rtl.ARENA_BACKINGS
+
+
+@pytest.mark.parametrize("backing", ["jax", "numpy"])
+def test_h2d_billing_per_backing_matches_reference(backing):
+    """The same push/release/sparse/materialize sequence with mirror
+    syncs between steps bills the reference's h2d bytes under the eager
+    and the host-only backing (the lazy one: the two tests above)."""
+    base = words((10, 9))
+    port = BitmapArena.from_bitmaps(base, device="cpu", backing=backing)
+    ref = rtl.BitmapArena.from_bitmaps(base, backing=backing)
+    handles = []
+    rng = np.random.default_rng(7)
+    for step in range(40):
+        op = rng.integers(0, 4)
+        if op == 0 or not handles:
+            row = words(9, rng)
+            handles.append((port.push(row), ref.push(row)))
+        elif op == 1:
+            tids = np.sort(rng.choice(32 * 9, size=5, replace=False))
+            handles.append((port.push_tids(tids), ref.push_tids(tids)))
+        elif op == 2:
+            hp, hr = handles.pop(int(rng.integers(len(handles))))
+            port.release(hp)
+            ref.release(hr)
+        else:
+            p, e = (int(v) for v in rng.integers(0, 10, size=2))
+            handles.append((port.materialize(p, e), ref.materialize(p, e)))
+        if step % 3 == 0:
+            port.device_rows()
+            ref.device_rows(0)
+            assert port.h2d_bytes == ref.h2d_bytes, step
+    port.count_h2d(96)
+    ref.count_h2d(96)
+    assert port.h2d_bytes == ref.h2d_bytes
+    if backing == "numpy":
+        assert port.h2d_bytes == 96
+
+
+def test_new_helpers_equal_reference():
+    bits = RNG.random((6, 75)) < 0.4
+    np.testing.assert_array_equal(ttl.pack_bool(bits), rtl.pack_bool(bits))
+    np.testing.assert_array_equal(
+        ttl.unpack_bool(ttl.pack_bool(bits), 75), bits)
+    db = [sorted(RNG.choice(7, size=RNG.integers(1, 5),
+                            replace=False).tolist()) for _ in range(90)]
+    port = BitmapArena.from_database(db, 7, device="cpu", backing="jax")
+    ref = rtl.BitmapArena.from_database(db, 7, backing="jax")
+    assert port.h2d_bytes == ref.h2d_bytes == port.nbytes_base
+    assert port.nbytes_base == ref.nbytes_base
+    out = []
+    for a in (port, ref):
+        hd = a.push(a.row(0) & a.row(1))
+        ht = a.push_tids(np.array([1, 4, 9], np.uint32))
+        out.append((a.gather([2, 3, 4]).tolist(),
+                    a.gather([5, 0, hd]).tolist(),
+                    a.rep_name(0), a.rep_name(ht), a.live_bytes_extra,
+                    a.peak_bytes_extra))
+        a.release(ht)
+        out.append(a.live_bytes_extra)
+    assert out[0] == out[2] and out[1] == out[3]
+    assert out[0][2:4] == ("bitmap", "tidlist")
+    arena = BitmapArena.from_bitmaps(words((4, 2)), device="cpu")
+    assert arena.gather([1, 2]).base is not None     # a zero-copy slice
+
+
+# ------------------------------------------------- mine under each backing
+MINE_CASE = ("retail", 1000, 0.03, 3)     # sparse and dense sweeps
+
+
+def _retail():
+    from repro_torch.data import transactions as tt
+    profile, n_tx, support, max_k = MINE_CASE
+    db, p = tt.load(profile, 0)
+    bm, counts = ttl.pack_database(db[:n_tx], p.n_items, return_counts=True)
+    return bm, counts, max(1, int(support * n_tx)), max_k
+
+
+@pytest.mark.parametrize("backend", ["torch", "numpy"])
+@pytest.mark.parametrize("backing", ["auto", "jax", "numpy"])
+def test_mine_under_each_backing_equals_reference(backing, backend):
+    """One worker fixes the schedule: supports and h2d bytes equal the
+    reference's (its pallas-interpret run for the kernel backend, whose
+    host-gather path bills each batch's rows under "numpy")."""
+    from repro.core import fpm as rfpm
+    from repro_torch.core import fpm as tfpm
+    bm, counts, ms, max_k = _retail()
+    got, gm = tfpm.mine(bm, ms, device="cpu", backend=backend,
+                        arena=backing, n_workers=1, max_k=max_k,
+                        item_counts=counts)
+    want, wm = rfpm.mine(bm, ms, arena=backing, n_workers=1, max_k=max_k,
+                         item_counts=counts,
+                         backend=("pallas-interpret" if backend == "torch"
+                                  else "numpy"))
+    assert got == want
+    assert gm.h2d_bytes == wm.h2d_bytes
+    assert (gm.flushes, gm.sparse_sweeps, gm.dense_sweeps) == (
+        wm.flushes, wm.sparse_sweeps, wm.dense_sweeps)
+    assert gm.sparse_sweeps > 0 and gm.dense_sweeps > 0
+    if backend == "numpy":
+        assert gm.h2d_bytes == 0 or backing == "jax"
+    elif backing == "numpy":
+        # every batch re-ships its rows: far above one upload of the base
+        assert gm.h2d_bytes > 4 * bm.nbytes
+
+
+@pytest.mark.parametrize("backing", ["auto", "numpy"])
+def test_kernel_backend_takes_the_gathered_forms_without_a_mirror(
+        monkeypatch, backing):
+    """With no mirror the kernel backend sweeps through the gathered
+    forms (``[B', E', W]`` rows staged from the host) and never through
+    the indexed entries; with a mirror, the other way round."""
+    from repro_torch.core import fpm as tfpm
+    from repro_torch.core import join_backend as tjb
+    calls = {}
+
+    def counted(name, fn):
+        def wrapper(*args):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args)
+        return wrapper
+
+    for name in ("bitmap_join_many", "gather_intersect_many",
+                 "bitmap_join_many_rows", "gather_intersect_many_rows"):
+        monkeypatch.setattr(tjb, name, counted(name, getattr(tjb, name)))
+    bm, counts, ms, max_k = _retail()
+    got, met = tfpm.mine(bm, ms, device="cpu", arena=backing, n_workers=2,
+                         max_k=max_k, item_counts=counts)
+    assert got == tfpm.mine_serial(bm, ms, max_k=max_k)
+    gathered = calls.get("bitmap_join_many", 0), calls.get(
+        "gather_intersect_many", 0)
+    indexed = calls.get("bitmap_join_many_rows", 0), calls.get(
+        "gather_intersect_many_rows", 0)
+    if backing == "numpy":
+        assert min(gathered) > 0 and indexed == (0, 0)
+    else:
+        assert min(indexed) > 0 and gathered == (0, 0)
+    assert sum(gathered) + sum(indexed) >= met.flushes

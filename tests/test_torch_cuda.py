@@ -5,6 +5,8 @@ is marked ``cuda`` and skips on a host without a CUDA device; run them
 on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``. This file imports
 no JAX, so it also collects where JAX is not installed."""
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -196,3 +198,84 @@ def test_mine_on_card_matches_serial_through_both_kernels(cuda,
     assert got == repro_torch.mine_serial(bm, 40, max_k=4)
     assert bj.launches > b0 and gi.launches > g0
     assert met.sparse_sweeps > 0 and met.dense_sweeps > 0
+
+
+def _small_db(n_tx=4000, n_items=40):
+    rng = np.random.default_rng(0)
+    db = [sorted(rng.choice(n_items, size=rng.integers(1, 8),
+                            replace=False).tolist()) for _ in range(n_tx)]
+    return pack_database(db, n_items, return_counts=True)
+
+
+def test_traced_bucket_mine_on_card(cuda):
+    from repro_torch.obs import Tracer, check_nesting, time_in_state
+    bm, counts = _small_db()
+    tr = Tracer()
+    got, met = repro_torch.mine(bm, 40, max_k=4, item_counts=counts,
+                                trace=tr)
+    assert got == repro_torch.mine_serial(bm, 40, max_k=4)
+    assert tr.dropped() == 0
+    assert check_nesting(tr.events()) == []
+    names = tr.lane_names()
+    assert {"driver", "dispatcher-0"} <= set(names)
+    assert sum(n.startswith("worker-") for n in names) == 8
+    cats = {e.cat for e in tr.events() if e.ph == "X"}
+    assert {"task", "level", "flush", "sweep", "arena"} <= cats
+    flushes = [e for e in tr.events() if e.name == "flush"]
+    assert len(flushes) == met.flushes
+    assert time_in_state(tr)
+
+
+@pytest.mark.parametrize("backing", ["auto", "jax", "numpy"])
+def test_mine_under_each_backing_on_card(cuda, monkeypatch, backing):
+    """Every backing mines the serial supports through the CUDA kernels;
+    without a mirror ("numpy") the sweeps launch the gathered forms and
+    never the indexed entries, and no plain version runs."""
+    from repro_torch.core import join_backend as jb
+    calls = collections.Counter()
+
+    def counted(module, name):
+        fn = getattr(module, name)
+
+        def wrapper(*args):
+            calls[name] += 1
+            return fn(*args)
+        monkeypatch.setattr(module, name, wrapper)
+
+    for name in ("bitmap_join_many", "gather_intersect_many",
+                 "bitmap_join_many_rows", "gather_intersect_many_rows"):
+        counted(jb, name)
+    for module, name in ((bj, "bitmap_join_many_ref"),
+                         (bj, "bitmap_join_many_rows_ref"),
+                         (gi, "gather_intersect_many_ref"),
+                         (gi, "gather_intersect_many_rows_ref")):
+        counted(module, name)
+    bm, counts = _small_db()
+    b0, g0 = bj.launches, gi.launches
+    got, met = repro_torch.mine(bm, 40, max_k=4, item_counts=counts,
+                                arena=backing)
+    assert got == repro_torch.mine_serial(bm, 40, max_k=4)
+    assert not any(calls[n] for n in calls if n.endswith("_ref")), calls
+    dense, sparse = (("bitmap_join_many", "gather_intersect_many")
+                     if backing == "numpy" else
+                     ("bitmap_join_many_rows", "gather_intersect_many_rows"))
+    assert calls[dense] > 0 and calls[sparse] > 0, calls
+    assert bj.launches - b0 == calls[dense]
+    assert gi.launches - g0 == calls[sparse]
+    other = {"bitmap_join_many", "gather_intersect_many",
+             "bitmap_join_many_rows", "gather_intersect_many_rows"} - {
+        dense, sparse}
+    assert not any(calls[n] for n in other), calls
+    if backing == "jax":
+        assert met.h2d_bytes >= bm.nbytes
+
+
+def test_launcher_on_card(cuda, capsys):
+    from repro_torch.launch import fpm_mine
+    fpm_mine.main(["--dataset", "mushroom", "--max-k", "3"])
+    out = capsys.readouterr().out
+    n = out.split("serial: ")[1].split()[0]
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith(("cilk", "clustered"))]
+    assert len(lines) == 2 and all(f"frequent={n}" in ln for ln in lines)
+    assert "device=cuda" in out

@@ -236,10 +236,22 @@ def test_mine_without_device_raises_when_no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": 2}, {"hosts": 2}, {"trace": object()}])
+    {"mesh": 2}, {"hosts": 2}, {"delta": object()}])
 def test_later_slices_raise_not_implemented(kwargs):
-    with pytest.raises(NotImplementedError):
-        tfpm.mine(np.ones((3, 2), np.uint32), 1, device="cpu", **kwargs)
+    bm = np.ones((3, 2), np.uint32)
+    if "delta" not in kwargs:
+        with pytest.raises(NotImplementedError):
+            tfpm.mine(bm, 1, device="cpu", **kwargs)
+        return
+    store = BitmapArena.from_bitmaps(bm, device="cpu")
+    result, frequent = tfpm._level1(bm, 1)
+    run = tfpm.MiningRun(store, policy="clustered", n_workers=1,
+                         granularity="bucket", cache_size=4)
+    try:
+        with pytest.raises(NotImplementedError):
+            tfpm.mine_more(run, 1, 3, result, frequent, **kwargs)
+    finally:
+        run.close()
 
 
 def test_bad_options_raise_value_error():

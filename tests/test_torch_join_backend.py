@@ -305,3 +305,45 @@ def test_sweep_bits_after_stop_raises():
     disp.stop()
     with pytest.raises(RuntimeError, match="stopped"):
         disp.sweep_bits(0, (1,))
+
+
+def test_backend_registry(monkeypatch):
+    """``get_backend`` builds a fresh backend per call (a kernel backend's
+    staging buffers belong to one dispatcher); ``available_backends``
+    lists the kernel backend with a card, or when the CPU is asked for."""
+    assert isinstance(jb.get_backend("numpy"), jb.NumpyBackend)
+    assert isinstance(jb.get_backend("torch"), jb.TorchBackend)
+    assert jb.get_backend("torch") is not jb.get_backend("torch")
+    assert isinstance(jb.resolve_backend("auto"), jb.TorchBackend)
+    with pytest.raises(ValueError, match="unknown join backend"):
+        jb.get_backend("pallas-jit")
+    with pytest.raises(ValueError, match="unknown join backend"):
+        rjb.get_backend("torch")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert jb.available_backends() == ["numpy"]
+    assert jb.available_backends(device="cpu") == ["numpy", "torch"]
+    assert jb.available_backends(device="cuda") == ["numpy"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert jb.available_backends() == ["numpy", "torch"]
+
+
+def test_host_gather_sweep_bills_like_reference():
+    """A mirror-less arena: the kernel backend's host-gather sweeps give
+    the naive counts and bill the reference's pallas-interpret h2d for
+    the same mixed dense/sparse flush."""
+    rows = rand_rows(12, 7)
+    port = BitmapArena.from_bitmaps(rows, device="cpu", backing="numpy")
+    ref = rtl.BitmapArena.from_bitmaps(rows, backing="numpy")
+    tids = tidlist.bitmap_to_tids(rows[0] & rows[1])
+    hp, hr = port.push_tids(tids), ref.push_tids(tids)
+    reqs = [(0, (1, 2, 3)), (5, (6,)), ("sparse", (4, 7, 8, 9, 10))]
+    got = jb.TorchBackend().sweep_many(port, [
+        jb.SweepRequest(hp if p == "sparse" else p, e) for p, e in reqs])
+    want = rjb.get_backend("pallas-interpret").sweep_many(ref, [
+        rjb.SweepRequest(hr if p == "sparse" else p, e) for p, e in reqs])
+    for g, w, (p, e) in zip(got, want, reqs):
+        np.testing.assert_array_equal(g, w)
+        prefix = (tidlist.tids_to_bitmap(tids, 7) if p == "sparse"
+                  else rows[p])
+        np.testing.assert_array_equal(g, naive_counts(prefix, rows[list(e)]))
+    assert port.h2d_bytes == ref.h2d_bytes > 0
