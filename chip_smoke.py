@@ -47,9 +47,7 @@ kernels line counts their launches:
               workers, categories task/level/flush/sweep/arena; prints
               the traced wall beside phase 3's, each lane's time in
               state and the dispatcher's mean ``flush`` and ``h2d-sync``
-              spans, and writes the Chrome trace to ``build/``; then one
-              more untraced and one more traced mine, for the tracing
-              overhead over two pairs;
+              spans, and writes the Chrome trace to ``build/``;
  11. residency  the phase-3 mine at max_k=4 under ``arena="jax"``
               (eager upload: h2d after load equals the base payload)
               and ``arena="numpy"`` (no mirror: every sweep goes through
@@ -58,14 +56,16 @@ kernels line counts their launches:
               ``gather_intersect_many`` too), each against
               ``mine_serial``, the gathered forms held against their
               plain versions on a captured call;
- 12. launcher ``python -m repro_torch.launch.fpm_mine --dataset t10i4
-              --policies cilk clustered --max-k 8 --trace-summary`` as a
-              subprocess (the paper's experiment: 20,000 transactions x
-              500 items at 0.5% support); it must exit 0, and it checks
-              each policy against ``mine_serial`` itself. Its launches
-              are read from the flush spans of its trace (one launch of
-              a kernel per flush holding a request of its kind), apart
-              from the counters of this process.
+ 12. launcher the launcher's ``main`` with the arguments of ``python -m
+              repro_torch.launch.fpm_mine --dataset t10i4 --policies
+              cilk clustered --max-k 8 --trace-summary`` (the paper's
+              experiment: 20,000 transactions x 500 items at 0.5%
+              support), in this process so that the launch counts are
+              set to 0 just before it and read just after; it checks
+              each policy against ``mine_serial`` itself, both batched
+              kernels must have launched through their indexed entries,
+              and each is held against its plain version on its first
+              call's inputs.
 
 The script imports nothing of JAX or of the reference package ``repro``.
 It exits non-zero without a result when no CUDA device is present.
@@ -88,7 +88,6 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
 MAIN_MAX_K = 8
 BITMAP_MAX_K = 4
-LAUNCHER_TIMEOUT_S = 420
 BENCH_E, BENCH_W = 4096, 4096  # benchmarks/kernels_bench.py's join shape
 SPIN_CYCLES = 200_000_000      # ~0.1 s of GPU spin ahead of a timing
 L2_FLUSH_BYTES = 256 << 20     # > the H100's 50 MB L2
@@ -514,25 +513,6 @@ def phase_trace(dev, bitmaps, counts, min_support, serial, untraced_wall):
         f"{s} {shares[s] / extent:.4f}" for s in states)
         + " (eval = task self time, sweep = blocked on the dispatcher, "
         "idle = parked)")
-    # tracing overhead: one more untraced and one more traced mine after
-    # phase 3 (untraced) and the checked run (traced), so each side has
-    # an early and a late wall
-    walls = {"untraced": [untraced_wall], "traced": [met.wall_s]}
-    for side in ("untraced", "traced"):
-        again, m = repro_torch.mine(
-            bitmaps, min_support, device=dev, granularity="bucket",
-            policy="clustered", max_k=MAIN_MAX_K, representation="auto",
-            item_counts=counts, trace=Tracer() if side == "traced" else None)
-        if again != serial:
-            raise SystemExit(f"trace: the {side} rerun differs from "
-                             f"mine_serial")
-        walls[side].append(m.wall_s)
-    mean = {k: sum(v) / len(v) for k, v in walls.items()}
-    log(f"  tracing overhead (order U, T, U, T): untraced walls "
-        f"{[round(w, 3) for w in walls['untraced']]}, traced walls "
-        f"{[round(w, 3) for w in walls['traced']]}; means "
-        f"{mean['untraced']:.3f} and {mean['traced']:.3f} s "
-        f"({mean['traced'] - mean['untraced']:+.3f} s)")
     disp = [e for e in events if e.lane == "dispatcher-0" and e.ph == "X"]
     flush = [e.dur for e in disp if e.name == "flush"]
     sync = [e.dur for e in disp if e.name == "h2d-sync"]
@@ -547,19 +527,99 @@ def phase_trace(dev, bitmaps, counts, min_support, serial, untraced_wall):
     return launches
 
 
+class EntrySpy:
+    """Wraps the backend's four kernel entries for one run: counts each
+    entry's calls and keeps a clone of its first call's arguments, so
+    that each kernel can be held against its plain version at the run's
+    own shapes after it (the counters of the wrappers are read before
+    that, so the comparison's launches are not counted)."""
+
+    GATHERED = ("bitmap_join_many", "gather_intersect_many")
+    INDEXED = ("bitmap_join_many_rows", "gather_intersect_many_rows")
+
+    def __enter__(self):
+        from repro_torch.core import join_backend
+        self.calls, self.kept = collections.Counter(), {}
+        self.originals = {n: getattr(join_backend, n)
+                          for n in self.GATHERED + self.INDEXED}
+        for name in self.originals:
+            setattr(join_backend, name, self._wrap(name))
+        return self
+
+    def _wrap(self, name):
+        import torch
+        fn = self.originals[name]
+
+        def call(*args):
+            self.calls[name] += 1
+            if name not in self.kept:
+                self.kept[name] = tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args)
+            return fn(*args)
+        return call
+
+    def __exit__(self, *exc):
+        from repro_torch.core import join_backend
+        for name, fn in self.originals.items():
+            setattr(join_backend, name, fn)
+
+    def check_route(self, label, launches, sparse_sweeps, indexed):
+        """Every launch went through the indexed entries (or, with
+        ``indexed`` false, the gathered forms) and none through the
+        other; ``bitmap_join_many`` launched, and ``gather_intersect_
+        many`` too when a sweep was sparse."""
+        used = self.INDEXED if indexed else self.GATHERED
+        other = self.GATHERED if indexed else self.INDEXED
+        got = tuple(self.calls[n] for n in used)
+        if (any(self.calls[n] for n in other) or got[0] == 0
+                or (sparse_sweeps and got[1] == 0)
+                or got != tuple(launches.values())):
+            raise SystemExit(f"{label}: entry calls {dict(self.calls)} "
+                             f"against launches {launches}")
+
+    def hold(self, label):
+        """Each kept call against its plain version on the same inputs."""
+        import torch
+        from repro_torch.kernels.bitmap_join import ops as bj
+        from repro_torch.kernels.bitmap_join import ref as bj_ref
+        from repro_torch.kernels.gather_intersect import ops as gi
+        from repro_torch.kernels.gather_intersect import ref as gi_ref
+        for name, args in self.kept.items():
+            ops, ref = (bj, bj_ref) if name.startswith("bitmap") else (
+                gi, gi_ref)
+            got = getattr(ops, name)(*args)
+            want = getattr(ref, f"{name}_ref")(*args)
+            torch.cuda.synchronize()
+            shape = (describe(name[:-len("_rows")], args)
+                     if name in self.INDEXED
+                     else [tuple(a.shape) for a in args])
+            if not torch.equal(got, want):
+                raise SystemExit(f"{label}: {name} disagrees with its "
+                                 f"plain version at {shape}")
+            log(f"  {label}: {name} at its first call of the run "
+                f"({shape}): equals its plain version ok")
+
+
+def counted_launches():
+    from repro_torch.kernels.bitmap_join import ops as bj
+    from repro_torch.kernels.gather_intersect import ops as gi
+    return {"bitmap_join_many": bj.launches,
+            "gather_intersect_many": gi.launches}
+
+
+def reset_launches():
+    from repro_torch.kernels.bitmap_join import ops as bj
+    from repro_torch.kernels.gather_intersect import ops as gi
+    bj.launches = 0
+    gi.launches = 0
+
+
 def phase_residency(dev, bitmaps, counts, min_support, serial):
     """The phase-3 mine under ``arena="jax"`` and ``arena="numpy"``;
     returns the launches of each run."""
-    import torch
-
     import repro_torch
-    from repro_torch.core import join_backend
     from repro_torch.core.tidlist import BitmapArena
-    from repro_torch.kernels.bitmap_join import ops as bj
-    from repro_torch.kernels.bitmap_join.ref import bitmap_join_many_ref
-    from repro_torch.kernels.gather_intersect import ops as gi
-    from repro_torch.kernels.gather_intersect.ref import (
-        gather_intersect_many_ref)
     eager = BitmapArena.from_bitmaps(bitmaps, device=dev, backing="jax")
     if eager.h2d_bytes != eager.nbytes_base:
         raise SystemExit(f"residency: arena='jax' uploaded "
@@ -568,47 +628,25 @@ def phase_residency(dev, bitmaps, counts, min_support, serial):
     log(f"residency: arena='jax' uploads the base payload at load: "
         f"h2d_bytes={eager.h2d_bytes} == {eager.nbytes_base} ok")
     del eager
-    gathered = {"bitmap_join_many": (bj, bitmap_join_many_ref),
-                "gather_intersect_many": (gi, gather_intersect_many_ref)}
-    entries = (*gathered, "bitmap_join_many_rows",
-               "gather_intersect_many_rows")
 
     def run(backing, max_k):
-        """One mine with the backend's four kernel entries counted (and
-        the first gathered-form call's inputs kept)."""
-        calls, kept = collections.Counter(), {}
-        originals = {n: getattr(join_backend, n) for n in entries}
-
-        def wrap(name):
-            def call(*args):
-                calls[name] += 1
-                if name in gathered and name not in kept:
-                    kept[name] = tuple(a.clone() for a in args)
-                return originals[name](*args)
-            return call
-
-        for name in entries:
-            setattr(join_backend, name, wrap(name))
-        bj.launches = 0
-        gi.launches = 0
-        t0 = time.perf_counter()
-        try:
+        """One mine with the backend's kernel entries spied on."""
+        with EntrySpy() as spy:
+            reset_launches()
+            t0 = time.perf_counter()
             result, met = repro_torch.mine(
                 bitmaps, min_support, device=dev, granularity="bucket",
                 policy="clustered", max_k=max_k, representation="auto",
                 item_counts=counts, arena=backing)
-        finally:
-            for name in entries:
-                setattr(join_backend, name, originals[name])
-        launches = {"bitmap_join_many": bj.launches,
-                    "gather_intersect_many": gi.launches}
-        return result, met, time.perf_counter() - t0, launches, calls, kept
+            wall = time.perf_counter() - t0
+            launches = counted_launches()
+        return result, met, wall, launches, spy
 
     out = {}
     for backing in ("jax", "numpy"):
         max_k = BITMAP_MAX_K
         while True:
-            result, met, wall, launches, calls, kept = run(backing, max_k)
+            result, met, wall, launches, spy = run(backing, max_k)
             if (backing == "jax" or launches["gather_intersect_many"]
                     or max_k == MAIN_MAX_K):
                 break
@@ -619,14 +657,8 @@ def phase_residency(dev, bitmaps, counts, min_support, serial):
         if result != want:
             raise SystemExit(f"residency[{backing}]: supports differ from "
                              f"mine_serial")
-        suffix = "" if backing == "numpy" else "_rows"
-        other = "_rows" if backing == "numpy" else ""
-        used = tuple(calls[n + suffix] for n in gathered)
-        if (any(calls[n + other] for n in gathered) or used[0] == 0
-                or (met.sparse_sweeps and used[1] == 0)
-                or used != tuple(launches.values())):
-            raise SystemExit(f"residency[{backing}]: entry calls "
-                             f"{dict(calls)} against launches {launches}")
+        spy.check_route(f"residency[{backing}]", launches,
+                        met.sparse_sweeps, indexed=backing == "jax")
         if backing == "jax" and met.h2d_bytes < bitmaps.nbytes:
             raise SystemExit("residency[jax]: h2d below the base payload")
         log(f"residency mine[bucket, auto, max_k={max_k}, arena={backing}]:"
@@ -636,54 +668,34 @@ def phase_residency(dev, bitmaps, counts, min_support, serial):
             f"launches={json.dumps(launches)} all through the "
             f"{'gathered forms' if backing == 'numpy' else 'indexed entries'}"
             f"; supports==mine_serial ok")
-        for name, args in kept.items():
-            module, plain = gathered[name]
-            got = getattr(module, name)(*args)
-            torch.cuda.synchronize()
-            if not torch.equal(got, plain(*args)):
-                raise SystemExit(f"residency: {name} disagrees with its "
-                                 f"plain version at "
-                                 f"{[tuple(a.shape) for a in args]}")
-            log(f"  {name} gathered form at its first call of this mine "
-                f"{[tuple(a.shape) for a in args]}: equals its plain "
-                f"version ok")
+        spy.hold(f"residency[{backing}]")
         out[backing] = launches
     return out
 
 
 def phase_launcher():
-    """The launcher as a user runs it, in its own process; returns the
-    launches read from the flush spans of its trace."""
-    import os
-    trace = ROOT / "build" / "launcher.trace.json"
-    cmd = [sys.executable, "-m", "repro_torch.launch.fpm_mine", "--dataset",
-           "t10i4", "--policies", "cilk", "clustered", "--max-k",
-           str(MAIN_MAX_K), "--trace-summary", "--trace", str(trace)]
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p))
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=LAUNCHER_TIMEOUT_S)
-    wall = time.perf_counter() - t0
-    (ROOT / "build" / "launcher.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise SystemExit(f"launcher exited {proc.returncode}: "
-                         f"{proc.stderr[-2000:]}")
-    for line in proc.stdout.splitlines():
-        if line.startswith(("dataset=", "serial:", "cilk", "clustered")):
-            log(f"launcher| {line}")
-    with open(trace) as f:
-        doc = json.load(f)
-    flushes = [e["args"] for e in doc["traceEvents"]
-               if e.get("name") == "flush"]
-    launches = {"bitmap_join_many": sum(1 for a in flushes if a["dense"]),
-                "gather_intersect_many": sum(1 for a in flushes
-                                             if a["sparse"])}
+    """The launcher's ``main``, as ``python -m repro_torch.launch.
+    fpm_mine`` calls it, in this process: the launch counts are set to 0
+    just before it and read just after. The launcher checks each policy
+    against ``mine_serial`` itself and prints its lines here. Returns
+    the launches."""
+    from repro_torch.launch import fpm_mine
+    argv = ["--dataset", "t10i4", "--policies", "cilk", "clustered",
+            "--max-k", str(MAIN_MAX_K), "--trace-summary"]
+    log(f"launcher: python -m repro_torch.launch.fpm_mine {' '.join(argv)}")
+    with EntrySpy() as spy:
+        reset_launches()
+        t0 = time.perf_counter()
+        fpm_mine.main(argv)
+        wall = time.perf_counter() - t0
+        launches = counted_launches()
     if min(launches.values()) == 0:
         raise SystemExit(f"launcher: a kernel never launched: {launches}")
-    log(f"launcher: exit 0 in {wall:.1f} s (both policies equal "
-        f"mine_serial); launches from its {len(flushes)} flush spans "
-        f"{json.dumps(launches)}; output in build/launcher.log")
+    spy.check_route("launcher", launches, True, indexed=True)
+    log(f"launcher: both policies equal mine_serial in {wall:.1f} s; "
+        f"launches={json.dumps(launches)}, all through the indexed "
+        f"entries")
+    spy.hold("launcher")
     return launches
 
 
@@ -1001,7 +1013,7 @@ def main() -> int:
     for backing, got in phase_residency(dev, bitmaps, counts, min_support,
                                         serial).items():
         note(f"residency-{backing}", got)
-    launcher_launches = phase_launcher()
+    note("launcher", phase_launcher())
 
     for granularity, representation, max_k in (
             ("bucket", "auto", MAIN_MAX_K),
@@ -1011,9 +1023,6 @@ def main() -> int:
         phase_profile(dev, bitmaps, counts, min_support, granularity,
                       representation, max_k)
     rows = report(recorders, df_recorders, entry_inputs, launches, worst)
-    for row in rows:
-        row["launcher_launches_from_trace"] = launcher_launches.get(
-            row["name"], 0)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
