@@ -13,7 +13,11 @@ Phases, each fatal on failure:
               card at the main path's shapes and edge cases, the batched
               kernels through both their indexed entries (row store +
               indices, as the backend calls them) and their gathered
-              forms (exact: the counts are integers);
+              forms (exact: the counts are integers); the dense kernel
+              also with prefix tuples (pidx [B, L], L in {2, 3, 8}, mixed
+              lengths and a pad request, segment-width stores of odd
+              stride and of 79 words), each also against an explicit
+              AND-then-join on the host;
   3. main     batch bucket mining of T10I4D100K-size data (100,000
               transactions x 500 items, min support 0.5%) with
               ``representation="auto"``: supports must equal the host
@@ -31,15 +35,16 @@ Phases, each fatal on failure:
               (E=4,096 x W=4,096) and at the T10I4D100K level-2 shape
               (one item row against all 500 at W=3,125), each held
               against its plain version and the host count;
-  8. profile  rerun phases 3-6 under torch.profiler for the device busy
-              share and the top kernels by device time;
+  8. profile  rerun phases 3-6, and phase 13's two ingest+refresh
+              rounds, under torch.profiler for the device busy share and
+              the top kernels by device time;
   9. report   time each kernel and its plain version on inputs captured
               from phases 3, 5 and 7; for the batched kernels also the
               parent design on the same inputs (a gathered [B, E, W]
               copy of mirror rows, then the gathered-form call) and the
               launch floor; print the kernels line and the status line.
 
-Three more phases run after phase 7, before the profile, so that the
+Five more phases run after phase 7, before the profile, so that the
 kernels line counts their launches:
  10. trace    the phase-3 mine again with a ``repro_torch.obs.Tracer``:
               supports equal ``mine_serial``, well-formed nesting, no
@@ -65,7 +70,33 @@ kernels line counts their launches:
               each policy against ``mine_serial`` itself, both batched
               kernels must have launched through their indexed entries,
               and each is held against its plain version on its first
-              call's inputs.
+              call's inputs;
+ 13. stream   ``StreamingMiner`` on the card over the first 90,000
+              phase-3 transactions (bucket grain, clustered, 8 workers,
+              ``arena="jax"``, ``representation="auto"``, max_k=8),
+              refreshed, then the last 10,000 ingested in two batches,
+              each followed by a refresh (compaction at each publish):
+              each ingest bills exactly its segment's payload, the final
+              supports equal ``mine_serial``, ``bitmap_join_many`` runs
+              tuple prefixes and on more than one segment, and
+              ``gather_intersect_many`` whenever a sweep was sparse;
+              then serving on the final generation (``serve``): 256
+              support hits, 256 ``top_k(prefix, 5)`` ranked on the card
+              (each equal to the host ranking) and 256 ``support_many``
+              batches of 8 never-counted itemsets (each equal to a host
+              AND-popcount); prints the refresh walls, rows, reuse,
+              compaction, flushes and occupancy, and the query p50/p99;
+              the same stream at depth-first grain and max_k=4
+              (``stream-depth-first``), which puts the depth-first delta
+              path on the card;
+ 14. launcher-stream  the launcher's ``main`` with ``--dataset t10i4
+              --stream 2 --serve 64 --max-k 8`` in this process; it
+              checks the final generation against ``mine_serial``
+              itself.
+Each run of phases 11-14 wraps the backend's four kernel entries
+(``EntrySpy``): calls must equal the counted launches, and each entry's
+first call (and the dense entry's first tuple-prefix call) is held
+against its plain version.
 
 The script imports nothing of JAX or of the reference package ``repro``.
 It exits non-zero without a result when no CUDA device is present.
@@ -285,6 +316,33 @@ def phase_parity(dev):
              bitmap_join_many_rows_ref(*args),
              f"indexed store [{n_rows}, {stride}] n_words={n_words} "
              f"B={b} E={e}")
+    # tuple prefixes pidx [B, L] (the streaming path's delta and query
+    # sweeps): L in {2, 3, 8}, mixed tuple lengths in one batch and a
+    # pad request in every case, segment-width stores of odd stride and
+    # of 79 words, phase-13 shapes (up to 32 requests over a pow2
+    # segment stride), each also held against an explicit AND-then-join
+    # on the host
+    from repro_torch.core.tidlist import popcount32
+    for n_rows, stride, n_words, b, e, tuple_len in [
+            (6, 8, 8, 3, 5, 2), (20, 64, 33, 4, 9, 3), (30, 79, 79, 5, 7, 8),
+            (16, 333, 333, 4, 70, 3), (600, 256, 157, 32, 64, 3),
+            (600, 256, 157, 32, 1, 8), (600, 4096, 2970, 8, 1, 8),
+            (600, 4096, 3125, 4, 257, 2)]:
+        m, pidx, eidx = cases.tuple_case(rng, n_rows, stride, b, e,
+                                         tuple_len)
+        store = to_device_words(m, dev)
+        args = (store, dev_int(pidx), store, dev_int(eidx), n_words)
+        got = bj.bitmap_join_many_rows(*args)
+        shape = (f"tuple prefixes L={tuple_len} store [{n_rows}, {stride}] "
+                 f"n_words={n_words} B={b} E={e}")
+        held("bitmap_join_many", got, bitmap_join_many_rows_ref(*args),
+             shape)
+        host = popcount32(cases.gathered_tuple_prefixes(m, pidx, n_words)
+                          [:, None, :]
+                          & cases.gathered_rows(m, eidx, n_words)).sum(2)
+        if not np.array_equal(got.cpu().numpy(), host):
+            raise SystemExit(f"bitmap_join_many disagrees with the host "
+                             f"AND-then-join at {shape}")
     for n_rows, stride, n_words, b, e, s, past in [
             (6, 8, 8, 3, 5, 40, False), (20, 64, 33, 4, 9, 70, True),
             (9, 3125, 3125, 3, 3, 300, False),
@@ -529,33 +587,61 @@ def phase_trace(dev, bitmaps, counts, min_support, serial, untraced_wall):
 
 class EntrySpy:
     """Wraps the backend's four kernel entries for one run: counts each
-    entry's calls and keeps a clone of its first call's arguments, so
-    that each kernel can be held against its plain version at the run's
-    own shapes after it (the counters of the wrappers are read before
-    that, so the comparison's launches are not counted)."""
+    entry's calls and keeps a clone of its first call's arguments (and of
+    the dense entry's first tuple-prefix call), so that each kernel can
+    be held against its plain version at the run's own shapes after it
+    (the counters of the wrappers are read before that, so the
+    comparison's launches are not counted). For the dense indexed entry
+    it also counts the calls per segment width and, for tuple prefixes
+    (pidx [B, L]), per padded shape (B', L, E', W_seg), keeping the
+    first call's arguments at up to ``KEEP`` such shapes."""
 
     GATHERED = ("bitmap_join_many", "gather_intersect_many")
     INDEXED = ("bitmap_join_many_rows", "gather_intersect_many_rows")
+    KEEP = 32
 
     def __enter__(self):
         from repro_torch.core import join_backend
         self.calls, self.kept = collections.Counter(), {}
+        self.widths = collections.Counter()     # dense calls per W_seg
+        self.tuple_shapes = collections.Counter()
+        self.tuple_inputs = {}
         self.originals = {n: getattr(join_backend, n)
                           for n in self.GATHERED + self.INDEXED}
         for name in self.originals:
             setattr(join_backend, name, self._wrap(name))
         return self
 
-    def _wrap(self, name):
+    def _clone(self, args):
         import torch
+        return tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+
+    def _wrap(self, name):
+        from repro_torch.core.tidlist import pow2
         fn = self.originals[name]
 
         def call(*args):
             self.calls[name] += 1
             if name not in self.kept:
-                self.kept[name] = tuple(
-                    a.clone() if isinstance(a, torch.Tensor) else a
-                    for a in args)
+                self.kept[name] = self._clone(args)
+            if name == "bitmap_join_many_rows":
+                self.widths[args[4]] += 1
+                if args[1].dim() == 2:
+                    b, e = args[3].shape
+                    key = (pow2(b), args[1].shape[1], pow2(e, lo=64),
+                           args[4])
+                    self.tuple_shapes[key] += 1
+                    if (key not in self.tuple_inputs
+                            and len(self.tuple_inputs) < self.KEEP):
+                        # the mirror is both stores: clone it once
+                        kept = self._clone(args[1:2] + args[3:])
+                        store = args[2].clone()
+                        self.tuple_inputs[key] = (store, kept[0], store,
+                                                  kept[1], kept[2])
+                    if (name + ":tuple" not in self.kept
+                            and self.kept[name][1].dim() == 1):
+                        self.kept[name + ":tuple"] = self._clone(args)
             return fn(*args)
         return call
 
@@ -585,7 +671,8 @@ class EntrySpy:
         from repro_torch.kernels.bitmap_join import ref as bj_ref
         from repro_torch.kernels.gather_intersect import ops as gi
         from repro_torch.kernels.gather_intersect import ref as gi_ref
-        for name, args in self.kept.items():
+        for label_name, args in self.kept.items():
+            name = label_name.split(":")[0]
             ops, ref = (bj, bj_ref) if name.startswith("bitmap") else (
                 gi, gi_ref)
             got = getattr(ops, name)(*args)
@@ -699,6 +786,210 @@ def phase_launcher():
     return launches
 
 
+STREAM_INITIAL = 90_000        # phase 13: mined first, then 2 ingests
+STREAM_BATCHES = ((90_000, 95_000), (95_000, 100_000))
+
+
+def phase_stream(dev, db, n_items, bitmaps, min_support, serial,
+                 granularity, max_k, label):
+    """Streaming on the card (phase 13, and at depth-first grain the
+    smaller stream): ``StreamingMiner`` over the first 90,000 phase-3
+    transactions with ``arena="jax"``, refreshed, then the last 10,000
+    ingested in two batches, each followed by a refresh (the default
+    ``compact_ratio`` folds the refreshed segments at each publish).
+    The launch counts are set to 0 just before and read just after.
+    Each ingest must bill exactly its segment's payload, the final
+    supports must equal ``mine_serial``, the dense kernel must have run
+    on more than one segment (and, at bucket grain, with tuple
+    prefixes), and the sparse kernel whenever a sweep was sparse.
+    Returns (launches, miner, spy): the caller serves on the miner and
+    closes it."""
+    from repro_torch.core import streaming as ts
+    with EntrySpy() as spy:
+        reset_launches()
+        t0 = time.perf_counter()
+        sm = ts.StreamingMiner(
+            n_items, min_support, initial_db=db[:STREAM_INITIAL],
+            device=dev, policy="clustered", n_workers=8, max_k=max_k,
+            granularity=granularity, arena="jax", representation="auto")
+        log(f"{label}: StreamingMiner over {STREAM_INITIAL} transactions "
+            f"(arena='jax', {granularity}, max_k={max_k}) built in "
+            f"{time.perf_counter() - t0:.2f} s; h2d at load "
+            f"{sm.arena.h2d_bytes} B == seg_nbytes(0) "
+            f"{sm.arena.seg_nbytes(0)} B")
+        disp = sm.runtime.dispatchers[0]
+        sparse = 0
+
+        def refreshed(tag):
+            nonlocal sparse
+            f0, r0 = disp.flushes, disp.requests
+            rep = sm.refresh()
+            met = rep.metrics
+            sparse += met.sparse_sweeps
+            flushes, reqs = disp.flushes - f0, disp.requests - r0
+            log(f"  {tag}: refresh gen {rep.generation} wall_s="
+                f"{rep.wall_s:.3f} |D|={rep.n_transactions} "
+                f"frequent={rep.frequent} segments={rep.segments_refreshed}"
+                f" dirty_items={rep.dirty_items} rows={rep.rows_touched} "
+                f"bytes_swept={rep.bytes_swept} reused={rep.reused} "
+                f"delta={rep.swept_delta} full={rep.swept_full} "
+                f"born={rep.born} died={rep.died} h2d={rep.h2d_bytes} B "
+                f"compacted={rep.compacted_segments} "
+                f"compaction_bytes={rep.compaction_bytes} "
+                f"flushes={flushes} occupancy={reqs / max(flushes, 1):.2f} "
+                f"dense_sweeps={met.dense_sweeps} "
+                f"sparse_sweeps={met.sparse_sweeps}")
+            return rep
+
+        refreshed("initial")
+        for lo, hi in STREAM_BATCHES:
+            ing = sm.ingest(db[lo:hi])
+            if not (ing.h2d_bytes == ing.payload_bytes
+                    == sm.arena.seg_nbytes(ing.segment)):
+                raise SystemExit(f"{label}: ingest of {hi - lo} "
+                                 f"transactions billed {ing.h2d_bytes} B, "
+                                 f"not seg_nbytes "
+                                 f"{sm.arena.seg_nbytes(ing.segment)} B")
+            log(f"  ingest [{lo}, {hi}): segment {ing.segment}, "
+                f"W_seg={ing.words}, wall_s={ing.wall_s:.3f}, h2d="
+                f"{ing.h2d_bytes} B == seg_nbytes ok")
+            refreshed(f"+{hi - lo} tx")
+        launches = counted_launches()
+    want = {c: v for c, v in serial.items() if len(c) <= max_k}
+    if dict(sm.snapshot.supports) != want:
+        sm.close()
+        raise SystemExit(f"{label}: final supports differ from mine_serial")
+    spy.check_route(label, launches, sparse, indexed=True)
+    # the levelwise delta path sweeps dirty buckets as base-item tuples;
+    # a depth-first class sweeps its own handed row, never a tuple
+    tuples = sum(spy.tuple_shapes.values())
+    if (granularity != "depth-first" and not tuples) or len(spy.widths) < 2:
+        sm.close()
+        raise SystemExit(f"{label}: bitmap_join_many ran {tuples} tuple-"
+                         f"prefix launches over segment widths "
+                         f"{dict(spy.widths)}")
+    log(f"{label}: final supports == mine_serial ({len(want)} itemsets) "
+        f"ok; launches={json.dumps(launches)} (sparse_sweeps={sparse}); "
+        f"bitmap_join_many launches per segment width "
+        f"{dict(spy.widths)}, {tuples} with tuple prefixes; tuple shapes "
+        f"(B', L, E', W_seg): {dict(spy.tuple_shapes.most_common(8))}")
+    spy.hold(label)
+    return launches, sm, spy
+
+
+def phase_serve(sm, db, bitmaps, serial):
+    """Serving on phase 13's final generation, the launch counts set to
+    0 just before and read just after: 256 ``support`` hits, 256
+    ``top_k(prefix, 5)`` ranked on the card (each equal to the host
+    ranking) and 256 ``support_many`` batches of 8 never-counted
+    itemsets (each equal to a host AND-popcount over the packed
+    bitmaps). Returns the launches."""
+    import numpy as np
+    from repro_torch.core import streaming as ts
+    from repro_torch.core.tidlist import support_of
+    rng = np.random.default_rng(13)
+    snap = sm.snapshot
+    if len(snap.supports) < ts.TOPK_DEVICE_MIN:
+        raise SystemExit(f"serve: {len(snap.supports)} itemsets do not "
+                         f"reach the device top-k path")
+    known = sorted(x for x in snap.supports if len(x) >= 2)
+    hits = [known[i] for i in rng.choice(len(known), 256, replace=False)]
+    prefixes = [x[:1 + i % 2] for i, x in enumerate(hits)]
+    host_index = ts._SnapshotIndex(snap.supports, "cpu")
+    saved, ts.TOPK_DEVICE_MIN = ts.TOPK_DEVICE_MIN, len(snap.supports) + 1
+    try:
+        host_top = [host_index.top_k(p, 5) for p in prefixes]
+    finally:
+        ts.TOPK_DEVICE_MIN = saved
+    seen, fresh = set(), []
+    while len(fresh) < 256 * 8:
+        t = db[int(rng.integers(len(db)))]
+        if len(t) < 3:
+            continue
+        k = int(rng.integers(3, min(6, len(t)) + 1))
+        x = tuple(sorted(int(i) for i in rng.choice(t, k, replace=False)))
+        if x not in seen and snap.lookup(x) is None:
+            seen.add(x)
+            fresh.append(x)
+    srv = ts.PatternServer(sm)
+    lat = {"hit": [], "top_k": [], "sweep": []}
+    with EntrySpy() as spy:
+        reset_launches()
+        for x in hits:
+            t0 = time.perf_counter()
+            got = srv.support(x)
+            lat["hit"].append(time.perf_counter() - t0)
+            if got != serial[x]:
+                raise SystemExit(f"serve: support{x} = {got}, not "
+                                 f"{serial[x]}")
+        for p, want in zip(prefixes, host_top):
+            t0 = time.perf_counter()
+            got = srv.top_k(p, 5)
+            lat["top_k"].append(time.perf_counter() - t0)
+            if got != want:
+                raise SystemExit(f"serve: top_k({p}, 5) on the card "
+                                 f"{got} differs from the host's {want}")
+        answers = []
+        for i in range(0, len(fresh), 8):
+            t0 = time.perf_counter()
+            answers += srv.support_many(fresh[i:i + 8])
+            lat["sweep"].append((time.perf_counter() - t0) / 8)
+        launches = counted_launches()
+    dev_index = snap._index._dev
+    if dev_index is None or not dev_index[0].is_cuda:
+        raise SystemExit("serve: top_k did not rank on the card")
+    want = [support_of(bitmaps[list(x)]) for x in fresh]
+    if answers != want:
+        bad = sum(a != w for a, w in zip(answers, want))
+        raise SystemExit(f"serve: {bad} swept supports differ from the "
+                         f"host AND-popcount")
+    stats = srv.merged_stats()
+    if (stats["hit"], stats["top_k"], stats["sweep"]) != (256, 256, 2048):
+        raise SystemExit(f"serve: per-kind counts {stats}")
+    spy.check_route("serve", launches, 0, indexed=True)
+    if launches["gather_intersect_many"]:
+        raise SystemExit(f"serve: query sweeps are dense: {launches}")
+    for kind, xs in lat.items():
+        a = np.asarray(xs) * 1e3
+        log(f"serve {kind}: n={len(xs)} p50={np.percentile(a, 50):.4f} ms "
+            f"p99={np.percentile(a, 99):.4f} ms (per query, host clock)")
+    log(f"serve: 256 hits == mine_serial, 256 top_k on the card == host "
+        f"ranking, 2048 never-counted itemsets == host AND-popcount "
+        f"(max support {max(answers)}) ok; stats={stats} query_sweeps="
+        f"{sm.query_sweeps} query_sweep_bytes={sm.query_sweep_bytes} "
+        f"launches={json.dumps(launches)}; tuple shapes (B', L, E', "
+        f"W_seg): {dict(spy.tuple_shapes.most_common(4))}")
+    spy.hold("serve")
+    return launches
+
+
+def phase_launcher_stream():
+    """Phase 14: the launcher's ``main`` with ``--dataset t10i4 --stream
+    2 --serve 64 --max-k 8`` in this process, the launch counts set to
+    0 just before and read just after; the launcher checks the final
+    generation against ``mine_serial`` itself. Returns the launches."""
+    from repro_torch.launch import fpm_mine
+    argv = ["--dataset", "t10i4", "--stream", "2", "--serve", "64",
+            "--max-k", str(MAIN_MAX_K)]
+    log(f"launcher-stream: python -m repro_torch.launch.fpm_mine "
+        f"{' '.join(argv)}")
+    with EntrySpy() as spy:
+        reset_launches()
+        t0 = time.perf_counter()
+        fpm_mine.main(argv)
+        wall = time.perf_counter() - t0
+        launches = counted_launches()
+    spy.check_route("launcher-stream", launches, True, indexed=True)
+    if not sum(spy.tuple_shapes.values()):
+        raise SystemExit("launcher-stream: no tuple-prefix launch")
+    log(f"launcher-stream: the stream's final generation equals "
+        f"mine_serial in {wall:.1f} s; launches={json.dumps(launches)}, "
+        f"all through the indexed entries, "
+        f"{sum(spy.tuple_shapes.values())} with tuple prefixes")
+    spy.hold("launcher-stream")
+    return launches
+
+
 def phase_profile(dev, bitmaps, counts, min_support, granularity,
                   representation, max_k):
     """A rerun of a mining phase under torch.profiler: how much of its
@@ -718,6 +1009,32 @@ def phase_profile(dev, bitmaps, counts, min_support, granularity,
         log(f"  device {sec:.4f} s in {count} x {key[:90]}")
 
 
+def phase_profile_stream(dev, db, n_items, min_support):
+    """A rerun of phase 13's two ingest+refresh rounds under
+    torch.profiler (the initial refresh runs unprofiled first): how
+    much of a refresh's wall the device was busy, and on what."""
+    from repro_torch.core import streaming as ts
+    sm = ts.StreamingMiner(
+        n_items, min_support, initial_db=db[:STREAM_INITIAL], device=dev,
+        policy="clustered", n_workers=8, max_k=MAIN_MAX_K,
+        granularity="bucket", arena="jax", representation="auto")
+    try:
+        sm.refresh()
+
+        def run():
+            for lo, hi in STREAM_BATCHES:
+                sm.ingest(db[lo:hi])
+                sm.refresh()
+        wall, busy, top = device_profile(run)
+    finally:
+        sm.close()
+    log(f"profile stream[2 x ingest + refresh, bucket, max_k={MAIN_MAX_K}]"
+        f" (profiled rerun): wall_s={wall:.3f} device_busy_s={busy:.4f} "
+        f"device_busy_share={busy / wall:.5f}")
+    for sec, count, key in top:
+        log(f"  device {sec:.4f} s in {count} x {key[:90]}")
+
+
 def work(name, args):
     """(bytes, integer ops) the kernel ``name`` must move and do on these
     inputs, each read or written once. The batched kernels count what
@@ -732,15 +1049,22 @@ def work(name, args):
         e, w = x.shape
         return (w + e * w + e) * 4, 3 * e * w
     if name == "bitmap_join_many":
+        # a prefix tuple (pidx [B, L]) is read row by row and ANDed: its
+        # rows count as prefix rows, and each row past the first costs
+        # one AND per word
         prefix_rows, pidx, ext_rows, eidx, n = args
-        live = (pidx >= 0)[:, None] & (eidx >= 0)
-        p_rows = torch.unique(pidx[pidx >= 0])
+        tup = pidx if pidx.dim() == 2 else pidx[:, None]
+        in_tuple = torch.cumprod((tup >= 0).int(), dim=1).bool()
+        real = in_tuple[:, 0]
+        live = real[:, None] & (eidx >= 0)
+        p_rows = torch.unique(tup[in_tuple])
         e_rows = torch.unique(eidx[live])
         rows = (torch.unique(torch.cat([p_rows, e_rows])).numel()
                 if prefix_rows.data_ptr() == ext_rows.data_ptr()
                 else p_rows.numel() + e_rows.numel())
         nbytes = (rows * n + pidx.numel() + 2 * eidx.numel()) * 4
-        return nbytes, 3 * int(live.sum()) * n
+        ands = int(in_tuple.sum()) - int(real.sum())
+        return nbytes, (3 * int(live.sum()) + ands) * n
     tids, lens, ext_rows, eidx, n = args
     b, s = tids.shape
     valid = (tids >= 0) & (torch.arange(s, device=tids.device)[None, :]
@@ -766,6 +1090,8 @@ def describe(name, args):
         return f"E={args[1].shape[0]} W={args[1].shape[1]}"
     b, e = args[3].shape
     s = f" S={args[0].shape[1]}" if name == "gather_intersect_many" else ""
+    if name == "bitmap_join_many" and args[1].dim() == 2:
+        s = f" L={args[1].shape[1]}"
     live = int((args[3] >= 0).sum())
     return (f"B={b} E={e}{s} ({live} real lanes) n_words={args[4]} "
             f"store [{args[2].shape[0]}, {args[2].stride(0)}]")
@@ -840,7 +1166,8 @@ def measure(name, kernel, plain, args, floor_ms=None):
          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
          "library_ms": None, "ms_cold": ms_cold, "host_ms": host_ms,
          "bytes": nbytes, "ops": ops}
-    if name == "bitmap_join":
+    if name == "bitmap_join" or args[1].dim() == 2:
+        # the parent commit had no tuple-prefix sweep to compare with
         return m
     copy, step = parent_design(name, args)
     old = step()
@@ -870,12 +1197,14 @@ def log_time(name, where, shape, m):
             f"{m['launch_floor_ms']:.4f} ms")
 
 
-def report(recorders, df_recorders, entry_inputs, launches, worst):
+def report(recorders, df_recorders, entry_inputs, launches, worst,
+           stream_spy):
     """The kernels line: each batched kernel timed through its indexed
     entry at its most frequent phase-3 batch shape (and at its most
-    frequent depth-first one), the single-prefix kernel at the entry
-    point's shapes, all on inputs captured from those runs. ``launches``
-    maps each kernel to its launches per phase."""
+    frequent depth-first one; ``bitmap_join_many`` also at phase 13's
+    most frequent tuple-prefix shape), the single-prefix kernel at the
+    entry point's shapes, all on inputs captured from those runs.
+    ``launches`` maps each kernel to its launches per phase."""
     import torch
     from repro_torch.kernels.bitmap_join import ops as bj
     from repro_torch.kernels.bitmap_join.ref import (
@@ -923,6 +1252,14 @@ def report(recorders, df_recorders, entry_inputs, launches, worst):
                               f"{rec.shapes[key]} of "
                               f"{sum(rec.shapes.values())} {phase}-phase "
                               f"calls at padded shape {key}"))
+            if name == "bitmap_join_many":
+                shapes = stream_spy.tuple_shapes
+                key = next(k for k, _ in shapes.most_common()
+                           if k in stream_spy.tuple_inputs)
+                cases.append(("stream", stream_spy.tuple_inputs[key],
+                              f"{shapes[key]} of {sum(shapes.values())} "
+                              f"phase-13 tuple-prefix calls at (B', L, "
+                              f"E', W_seg) {key}"))
         shapes = {}
         for label, args, where in cases:
             m = measure(name, kernel, plain, args, floor_ms)
@@ -1014,6 +1351,20 @@ def main() -> int:
                                         serial).items():
         note(f"residency-{backing}", got)
     note("launcher", phase_launcher())
+    got, sm, stream_spy = phase_stream(dev, db, prof.n_items, bitmaps,
+                                       min_support, serial, "bucket",
+                                       MAIN_MAX_K, "stream")
+    note("stream", got)
+    try:
+        note("serve", phase_serve(sm, db, bitmaps, serial))
+    finally:
+        sm.close()
+    got, sm, _ = phase_stream(dev, db, prof.n_items, bitmaps, min_support,
+                              serial, "depth-first", BITMAP_MAX_K,
+                              "stream-depth-first")
+    sm.close()
+    note("stream-depth-first", got)
+    note("launcher-stream", phase_launcher_stream())
 
     for granularity, representation, max_k in (
             ("bucket", "auto", MAIN_MAX_K),
@@ -1022,7 +1373,9 @@ def main() -> int:
             ("auto", "auto", MAIN_MAX_K)):
         phase_profile(dev, bitmaps, counts, min_support, granularity,
                       representation, max_k)
-    rows = report(recorders, df_recorders, entry_inputs, launches, worst)
+    phase_profile_stream(dev, db, prof.n_items, min_support)
+    rows = report(recorders, df_recorders, entry_inputs, launches, worst,
+                  stream_spy)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

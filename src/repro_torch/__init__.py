@@ -1,10 +1,14 @@
 """PyTorch/CUDA port of the task-parallel frequent-pattern miner.
 
 The package mirrors ``repro``'s layout module for module and imports
-neither JAX nor ``repro``. Batch mining runs on an NVIDIA GPU through two
-hand-written CUDA kernels (``repro_torch.kernels``); ``mine`` runs on the
+neither JAX nor ``repro``. Batch mining, streaming refresh and query
+serving run on an NVIDIA GPU through hand-written CUDA kernels
+(``repro_torch.kernels``); ``mine`` and ``StreamingMiner`` run on the
 card unless the caller passes ``device="cpu"``.
 """
 from repro_torch.core.fpm import mine, mine_serial  # noqa: F401
+from repro_torch.core.streaming import (PatternServer,  # noqa: F401
+                                        PatternSnapshot, StreamingMiner)
 
-__all__ = ["mine", "mine_serial"]
+__all__ = ["mine", "mine_serial", "StreamingMiner", "PatternServer",
+           "PatternSnapshot"]

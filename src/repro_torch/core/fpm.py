@@ -33,9 +33,10 @@ upload (``MiningMetrics.h2d_bytes``) instead of one upload per sweep.
 
 ``mine(trace=Tracer())`` records the run's timeline (repro_torch.obs):
 worker task/steal/park spans, dispatcher flush spans, the arena's
-mirror syncs and the driver's level spans. Multi-device meshes,
-multi-host runs and streaming deltas belong to later slices of the port
-and raise ``NotImplementedError`` here.
+mirror syncs and the driver's level spans. ``mine_more(delta=)`` is the
+streaming refresh's incremental re-mine (``DeltaPlan``; driven by
+``repro_torch.core.streaming``). Multi-device meshes and multi-host runs
+belong to later slices of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ import collections
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -129,17 +130,28 @@ class _PrefixCache:
     handle handoff makes it vestigial there (cache_misses == 0)."""
 
     def __init__(self, arena: BitmapArena, maxsize: int = 32,
+                 upto: Optional[int] = None,
                  model: Optional[DensityModel] = None):
         self.arena = arena
         self.maxsize = maxsize
         self.model = model        # density model: sparse-worthy prefix
                                   # intersections are pushed as
                                   # tid-lists instead of word-columns
+        self.upto = upto          # segment boundary: builds read (and
+                                  # pushed rows cover) only the first
+                                  # ``upto`` segments, so an ingest
+                                  # landing mid-refresh cannot change a
+                                  # row's width between two reads
         self.d: "collections.OrderedDict[Itemset, int]" = \
             collections.OrderedDict()
         self.hits = 0
         self.misses = 0
         self.partial_hits = 0
+
+    def _row(self, h: int) -> np.ndarray:
+        if self.upto is None:
+            return self.arena.row(h)
+        return self.arena.row_upto(h, self.upto)
 
     def _put(self, prefix: Itemset, handle: int):
         self.d[prefix] = handle
@@ -165,27 +177,29 @@ class _PrefixCache:
             if parent in d:
                 d.move_to_end(parent)
                 self.partial_hits += 1
-                bm = arena.row(d[parent])
+                bm = self._row(d[parent])
                 for item in prefix[cut:]:
-                    bm = bm & arena.row(item)
+                    bm = bm & self._row(item)
                 rows_read = len(prefix) - cut
                 break
         else:
-            bm = arena.row(prefix[0]).copy()
+            bm = self._row(prefix[0]).copy()
             for item in prefix[1:]:
-                bm &= arena.row(item)
+                bm &= self._row(item)
             rows_read = len(prefix)
         if (self.model is not None and self.model.pick_rep(
                 int(tidlist.popcount32(bm).sum())) != "bitmap"):
-            h = arena.sparsify_push(bm)
+            h = arena.sparsify_push(bm, cover=self.upto)
         else:
-            h = arena.push(bm)
+            h = arena.push(bm, cover=self.upto)
         arena.retain(h)           # the caller's reference, BEFORE _put:
         self._put(prefix, h)      # maxsize=0 evicts-and-releases at once
         return h, rows_read
 
     def drain(self) -> None:
-        """Release every cached handle."""
+        """Release every cached handle. A streaming arena outlives the
+        run, so rows a dead cache pinned would never recycle (and would
+        lack every later segment's words)."""
         while self.d:
             _, h = self.d.popitem(last=False)
             self.arena.release(h)
@@ -225,10 +239,80 @@ def _cluster_fn(granularity: str, policy: str):
             else (lambda a: a[0]))
 
 
+@dataclass
+class DeltaPlan:
+    """Incremental re-mine instructions that ``StreamingMiner.refresh``
+    threads through the engines (None on a batch ``mine``).
+
+    ``known`` maps every candidate ever swept (frequent AND negative
+    border) to its exact support over the segments refreshed so far; the
+    engines update it in place (under ``lock`` on the depth-first path,
+    where class tasks merge concurrently). ``dirty_items`` are the items
+    occurring in the pending segments: a candidate's support may have
+    changed iff EVERY item of it is dirty. ``segments`` are the pending
+    segment ids a dirty candidate's delta sweep reads; ``base_segments``
+    are the segments a FULL (fresh-candidate) sweep reads — the refresh
+    generation boundary, so an ingest landing mid-refresh never leaks
+    into this generation's supports. ``priority_of(prefix)`` (optional)
+    is the staleness-hotness carried on spawned tasks, so the clustered
+    policies drain stale-hot buckets first; None skips priority stamping
+    entirely. ``tenant`` tags every spawned task for the scheduler's
+    weighted-fair drain (None on single-tenant runs). Clean known
+    candidates are never swept at all."""
+    known: Dict[Itemset, int]
+    dirty_items: frozenset
+    segments: Tuple[int, ...]
+    base_segments: Tuple[int, ...]
+    priority_of: Optional[Callable[[Itemset], float]] = None
+    tenant: object = None
+    lock: threading.Lock = field(default_factory=threading.Lock)
+    # refresh-side counters (how much re-mining the plan avoided)
+    swept_full: int = 0
+    swept_delta: int = 0
+    reused: int = 0
+
+    def is_dirty(self, c: Itemset) -> bool:
+        d = self.dirty_items
+        return all(i in d for i in c)
+
+    def classify_buckets(self, plan: List[Bucket]
+                         ) -> Tuple[List[Tuple[Itemset, int]],
+                                    List[Bucket], List[Itemset]]:
+        """Split a level's prefix buckets into (clean ``(c, support)``
+        pairs, dirty sub-buckets, fresh candidates) in one pass over the
+        grouped plan. The prefix's dirtiness is probed ONCE per bucket,
+        and dirty extensions stay bucketed so the delta path never
+        re-groups them."""
+        known, ditems = self.known, self.dirty_items
+        clean: List[Tuple[Itemset, int]] = []
+        dirty: List[Bucket] = []
+        fresh: List[Itemset] = []
+        for b in plan:
+            p = b.prefix
+            p_dirty = all(i in ditems for i in p)
+            d_exts: List[int] = []
+            for e in b.exts:
+                c = p + (e,)
+                ks = known.get(c)
+                if ks is None:
+                    fresh.append(c)
+                elif p_dirty and e in ditems:
+                    d_exts.append(e)
+                else:
+                    clean.append((c, ks))
+            if d_exts:
+                dirty.append(Bucket(b.key, p, tuple(d_exts)))
+        return clean, dirty, fresh
+
+
 class EngineRuntime:
     """The engine substrate: one scheduler plus one sweep dispatcher
     over the arena. ``mine`` builds one per call and tears it down with
-    the run."""
+    the run; the streaming layer owns ONE across its whole life and
+    lends it to every refresh's :class:`MiningRun`, so query sweeps
+    submitted between (and during) refreshes land on the same dispatcher
+    as candidate sweeps and coalesce into the same flushes. Idle cost is
+    zero: the dispatcher thread and the workers park untimed."""
 
     def __init__(self, store: BitmapArena, *, policy: str = "clustered",
                  n_workers: int = 8, granularity: str = "bucket",
@@ -256,6 +340,8 @@ class EngineRuntime:
             "per_device", lambda: [d.stats() for d in self.dispatchers])
         self.registry.register(
             "arena", lambda: {"h2d_bytes": store.h2d_bytes,
+                              "compactions": store.compactions,
+                              "compaction_bytes": store.compaction_bytes,
                               "live_extra": store.live_extra})
 
     def shutdown(self) -> None:
@@ -266,13 +352,21 @@ class EngineRuntime:
 
 class MiningRun:
     """One mining run's runtime, per-worker prefix caches and metrics,
-    built around an arena the caller owns."""
+    built around an arena the caller owns (a batch run discards it; a
+    streaming run keeps it across refreshes).
+
+    ``runtime`` lends a persistent :class:`EngineRuntime` instead of
+    building one: the run then reports scheduler and dispatcher gauges
+    as DELTAS against construction-time baselines (the shared runtime's
+    counters accumulate across refreshes and query traffic), and
+    ``close`` drains this run's caches but leaves the runtime alive."""
 
     def __init__(self, store: BitmapArena, *, policy: str,
                  n_workers: int, granularity: str, cache_size: int,
                  backend: str = "auto", max_batch: int = MAX_BATCH,
                  flush_us: float = FLUSH_US,
                  representation: str = "auto", item_counts=None,
+                 runtime: Optional[EngineRuntime] = None,
                  tracer=None):
         if granularity not in GRANULARITIES:
             raise ValueError(
@@ -282,10 +376,17 @@ class MiningRun:
             raise ValueError(
                 f"representation must be one of {REPRESENTATIONS}, "
                 f"got {representation!r}")
-        self.runtime = EngineRuntime(
-            store, policy=policy, n_workers=n_workers,
-            granularity=granularity, backend=backend,
-            max_batch=max_batch, flush_us=flush_us, tracer=tracer)
+        if runtime is None:
+            runtime = EngineRuntime(
+                store, policy=policy, n_workers=n_workers,
+                granularity=granularity, backend=backend,
+                max_batch=max_batch, flush_us=flush_us, tracer=tracer)
+            self._owns_runtime = True
+        else:
+            if runtime.store is not store:
+                raise ValueError("runtime was built over a different arena")
+            self._owns_runtime = False
+        self.runtime = runtime
         self.store = store
         self.granularity = granularity
         self.cache_size = cache_size
@@ -297,28 +398,54 @@ class MiningRun:
                           store.n_words, item_counts,
                           force=(None if representation == "auto"
                                  else "sparse")))
-        self.dispatchers = self.runtime.dispatchers
-        self.sched = self.runtime.sched
+        self.dispatchers = runtime.dispatchers
+        self.sched = runtime.sched
         self.metrics = MiningMetrics()
         self.caches: Dict[int, _PrefixCache] = {}   # thread ident -> cache
+        # gauge baselines: zero for an owned runtime, the accumulated
+        # counters for a borrowed one — finalize() reports deltas
+        self._disp0 = [(d.flushes, d.requests, d.queue_flushes,
+                        d.queue_requests, d.query_requests, d.sweep_s)
+                       for d in self.dispatchers]
+        self._sched0 = self.sched.merged_stats()
 
     def close(self) -> None:
-        self.runtime.shutdown()
+        if self._owns_runtime:
+            self.runtime.shutdown()
         for cache in self.caches.values():
             cache.drain()
 
+    @staticmethod
+    def _disp_stats(d, base) -> Dict[str, float]:
+        f0, r0, qf0, qr0, q0, s0 = base
+        return obs_schema.device_stats(
+            {"device": d.shard, "flushes": d.flushes - f0,
+             "sweep_requests": d.requests - r0,
+             "query_requests": d.query_requests - q0,
+             "queue_flushes": d.queue_flushes - qf0,
+             "queue_requests": d.queue_requests - qr0,
+             "sweep_s": d.sweep_s - s0})
+
     def finalize(self, t0: float) -> MiningMetrics:
-        """Fill the metrics from scheduler/dispatcher/arena gauges."""
+        """Fill the metrics from scheduler/dispatcher/arena gauges.
+        Scheduler and dispatcher gauges are deltas against this run's
+        construction (the totals for an owned runtime). Arena gauges are
+        cumulative over the arena's life: ``mine`` owns a fresh arena, so
+        they equal the run's; ``refresh`` reports its own deltas."""
         metrics, store = self.metrics, self.store
         metrics.wall_s = time.perf_counter() - t0
-        metrics.scheduler = self.sched.merged_stats()
+        metrics.scheduler = obs_schema.scheduler_stats(
+            obs_schema.delta_counters(self.sched.merged_stats(),
+                                      self._sched0,
+                                      obs_schema.SCHEDULER_COUNTERS))
         metrics.rows_touched = int(metrics.scheduler["rows_touched"])
         metrics.bytes_swept = int(metrics.scheduler["bytes_swept"])
         metrics.cache_hits = sum(c.hits for c in self.caches.values())
         metrics.cache_misses = sum(c.misses for c in self.caches.values())
         metrics.cache_partial_hits = sum(c.partial_hits
                                          for c in self.caches.values())
-        metrics.per_device = [d.stats() for d in self.dispatchers]
+        metrics.per_device = [self._disp_stats(d, b)
+                              for d, b in zip(self.dispatchers, self._disp0)]
         metrics.flushes = sum(int(row["flushes"])
                               for row in metrics.per_device)
         total_requests = sum(int(row["sweep_requests"])
@@ -414,13 +541,12 @@ def mine(bitmaps: np.ndarray, min_support: int, *,
 
 def mine_more(run: MiningRun, min_support: int, max_k: int,
               result: Dict[Itemset, int], frequent: List[Itemset],
-              delta=None) -> None:
+              delta: Optional[DeltaPlan] = None) -> None:
     """Mine levels ≥ 2 on an existing run, starting from the level-1
-    ``frequent`` itemsets. ``delta`` (a streaming refresh plan) comes
-    with the port's streaming slice."""
-    if delta is not None:
-        raise NotImplementedError("delta= comes with the port's "
-                                  "streaming slice")
+    ``frequent`` itemsets — the shared entry point under ``mine``
+    (delta=None: sweep everything) and the streaming refresh (delta:
+    reuse known supports, delta-sweep dirty candidates over the pending
+    segments only, carry staleness priorities)."""
     tr = run.sched.tracer
     if tr is not None:
         # whichever thread drives this run gets the "driver" lane
@@ -428,21 +554,33 @@ def mine_more(run: MiningRun, min_support: int, max_k: int,
     if run.granularity == "depth-first":
         _mine_depth_first(run.store, run.dispatchers[0], min_support,
                           max_k, run.sched, run.metrics, result, frequent,
-                          model=run.model)
+                          delta=delta, model=run.model)
     else:
         _mine_levelwise(run.store, run.dispatchers[0], min_support,
                         max_k, run.sched, run.metrics, result, frequent,
                         run.granularity, run.cache_size, run.caches,
-                        model=run.model)
+                        delta=delta, model=run.model)
 
 
 def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
                     metrics, result, frequent, granularity, cache_size,
-                    caches, model=None):
+                    caches, delta=None, model=None):
     """Level-synchronous engine: plan level k, spawn, barrier, plan
     level k+1 (the paper's §2 shape, at candidate or bucket grain).
-    Candidate tasks join on the host directly; bucket tasks sweep
-    through the dispatcher.
+    Candidate tasks join on the host directly; bucket tasks, and every
+    segment-restricted sweep, go through the dispatcher.
+
+    With a ``delta`` plan the level's candidates split three ways:
+    *clean known* (support unchanged — zero rows touched), *dirty known*
+    (delta-swept over only the pending segments, support accumulated
+    into ``delta.known``), and *fresh* (never swept — full sweep over
+    the generation-boundary segments). Dirty buckets are CHUNKED: one
+    scheduler task carries many buckets and submits them as a burst of
+    tuple-prefix sweeps — the backend AND-reduces each prefix's base
+    rows over only the pending segments, so the delta path never builds
+    a full-width prefix intersection and its launches fill like the full
+    path's. Tasks carry ``delta.priority_of`` (when set) so the
+    clustered policies drain stale-hot prefixes first.
 
     ``granularity="auto"`` runs this engine with a per-bucket escape
     hatch: when the density model predicts a prefix's subtree is sparse
@@ -450,14 +588,21 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
     detaches into a depth-first class task — the subtree mines
     barrier-free and its itemsets never re-enter the level frontier
     (``gen_candidates`` gets the full known-frequent set, so the
-    cross-prefix prune stays exact)."""
+    cross-prefix prune stays exact). Under a delta plan auto stays
+    level-synchronous: the clean/dirty/fresh split already skips clean
+    work, and diffset handoffs are disabled mid-refresh anyway."""
     n_w = store.n_words
+    # cached prefix rows must cover every segment the plan sweeps
+    upto = ((max(delta.base_segments) + 1)
+            if delta is not None and delta.base_segments else None)
     lock = threading.Lock()
     df_miner = None
     detached_tasks: List = []
-    if granularity == "auto" and model is not None:
+    if granularity == "auto" and model is not None and delta is None:
         df_miner = _ClassMiner(store, dispatcher, min_support, max_k,
                                sched, metrics, result, model=model)
+    prio = delta.priority_of if delta is not None else None
+    tenant = delta.tenant if delta is not None else None
 
     def _thread_cache() -> _PrefixCache:
         tid = threading.get_ident()
@@ -465,7 +610,8 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
         if c is None:
             with lock:
                 c = caches.setdefault(
-                    tid, _PrefixCache(store, cache_size, model=model))
+                    tid, _PrefixCache(store, cache_size, upto=upto,
+                                      model=model))
         return c
 
     def _prefix_handle(cache: _PrefixCache, prefix: Itemset
@@ -476,38 +622,56 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
             return prefix[0], 1                 # base row; no reuse at k=2
         return cache.get(prefix)
 
-    def _account(rows: int) -> None:
-        st = sched.worker_stats()
-        st.rows_touched += rows
-        st.bytes_swept += rows_to_bytes(rows, n_w)
+    def _seg_w(segments) -> int:
+        """Words per row a sweep reads: the full width, or only the
+        swept segments' words."""
+        if segments is None:
+            return n_w
+        return sum(store.seg_words(g) for g in segments)
 
-    def count_task(cand: Itemset) -> int:
+    def _account(prows: int, erows: int, segments) -> None:
+        """prows prefix-build rows are read full-width; erows extension
+        rows only over the swept segments."""
+        st = sched.worker_stats()
+        st.rows_touched += prows + erows
+        st.bytes_swept += (rows_to_bytes(prows, n_w)
+                           + rows_to_bytes(erows, _seg_w(segments)))
+
+    def count_task(cand: Itemset, segments=None) -> int:
         cache = _thread_cache()
         ph, prows = _prefix_handle(cache, cand[:-1])
         try:
-            _account(prows + 1)
+            _account(prows, 1, segments)
             st = sched.worker_stats()
-            if store.rep_of(ph) != tidlist.REP_BITMAP:
+            sparse = store.rep_of(ph) != tidlist.REP_BITMAP
+            if sparse:
                 st.sparse_sweeps += 1
                 st.sparse_bytes_swept += len(store.tids_of(ph)) * 4
+            else:
+                st.dense_sweeps += 1
+            if segments is not None:
+                st.sweeps_submitted += 1
+                return int(dispatcher.sweep(ph, (cand[-1],),
+                                            segments=segments)[0])
+            if sparse:
                 # cached sparse prefixes are tid-lists (never
                 # diffsets), so the gather count IS the support
                 return int(tidlist.gather_count(store.tids_of(ph),
                                                 store.row(cand[-1])))
-            st.dense_sweeps += 1
             return int(tidlist.popcount32(store.row(ph)
                                           & store.row(cand[-1])).sum())
         finally:
             store.release(ph)
 
-    def sweep_task(bucket: Bucket) -> np.ndarray:
+    def sweep_task(bucket: Bucket, segments=None) -> np.ndarray:
         """Bucket-granularity body: resolve the prefix handle once, then
         one handle-based request on the dispatcher (which batches it
-        with other workers' buckets). Returns [E] counts."""
+        with other workers' buckets). ``segments`` restricts the sweep
+        to a segment subset. Returns [E] counts."""
         cache = _thread_cache()
         ph, prows = _prefix_handle(cache, bucket.prefix)
         try:
-            _account(prows + len(bucket.exts))
+            _account(prows, len(bucket.exts), segments)
             st = sched.worker_stats()
             st.sweeps_submitted += 1
             if store.rep_of(ph) != tidlist.REP_BITMAP:
@@ -516,7 +680,7 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
                                           * len(bucket.exts))
             else:
                 st.dense_sweeps += 1
-            return dispatcher.sweep(ph, bucket.exts)
+            return dispatcher.sweep(ph, bucket.exts, segments=segments)
         finally:
             store.release(ph)
 
@@ -528,7 +692,7 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
         this whole subtree leaves the level frontier."""
         cache = _thread_cache()
         ph, prows = _prefix_handle(cache, bucket.prefix)
-        _account(prows)
+        _account(prows, 0, None)
         df_miner.class_task(bucket.prefix, ph, bucket.exts, psup,
                             own_support, True)
 
@@ -552,15 +716,21 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
                 keep.append(b)
         return keep
 
-    def _spawn_sweeps(cands):
+    def _spawn_sweeps(cands, segments):
         """Spawn sweeps for ``cands`` (bucket- or candidate-grained) and
-        return a collector to call AFTER ``wait_all``."""
+        return a collector to call AFTER ``wait_all`` — fresh and dirty
+        sweep sets share one level barrier."""
+        if not cands:
+            return lambda: []
         if granularity in ("bucket", "auto"):
             plan = group_by_prefix(cands)
             if df_miner is not None:
                 plan = _detach(plan)
             metrics.buckets += len(plan)
-            tasks = [sched.spawn(sweep_task, b, attr=(b.key, b.prefix))
+            tasks = [sched.spawn(sweep_task, b, segments,
+                                 attr=(b.key, b.prefix),
+                                 priority=prio(b.prefix) if prio else 0.0,
+                                 tenant=tenant)
                      for b in plan]
 
             def collect():
@@ -569,12 +739,57 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
                         for b, t in zip(plan, tasks)
                         for e, s in zip(b.exts, t.result)]
         else:
-            tasks = [sched.spawn(count_task, c, attr=(prefix_hash(c), c))
+            tasks = [sched.spawn(count_task, c, segments,
+                                 attr=(prefix_hash(c), c),
+                                 priority=prio(c[:-1]) if prio else 0.0,
+                                 tenant=tenant)
                      for c in cands]
 
             def collect():
                 _raise_task_errors(tasks)
                 return [(c, int(t.result)) for c, t in zip(cands, tasks)]
+        return collect
+
+    def delta_chunk_task(chunk: List[Bucket]) -> List[Tuple[Itemset, int]]:
+        """Coalesced dirty-candidate burst: each bucket in the chunk
+        becomes ONE tuple-prefix sweep over the pending segments, and
+        the whole chunk executes as one burst — on this worker thread
+        for the host backend, as dispatcher flushes for the kernel
+        backend. No prefix bitmap is ever built on the host."""
+        st = sched.worker_stats()
+        counts_per_bucket = dispatcher.sweep_local(
+            [((b.prefix if len(b.prefix) > 1 else b.prefix[0]), b.exts)
+             for b in chunk],
+            segments=delta.segments)
+        st.sweeps_submitted += len(chunk)
+        out: List[Tuple[Itemset, int]] = []
+        rows = 0
+        for b, counts in zip(chunk, counts_per_bucket):
+            rows += len(b.prefix) + len(b.exts)
+            out.extend((b.prefix + (e,), int(s))
+                       for e, s in zip(b.exts, counts))
+        st.rows_touched += rows
+        st.bytes_swept += rows_to_bytes(rows, _seg_w(delta.segments))
+        return out
+
+    def _spawn_delta_chunks(plan: List[Bucket]):
+        """Spawn a handful of chunk tasks (≈4 per worker) over the
+        classified dirty buckets instead of one task per bucket:
+        per-task scheduler and future overhead would otherwise cost more
+        than the few-word sweeps themselves."""
+        if not plan:
+            return lambda: []
+        metrics.buckets += len(plan)
+        n_chunks = max(1, 4 * sched.n)
+        size = max(1, -(-len(plan) // n_chunks))
+        tasks = [sched.spawn(delta_chunk_task, plan[i:i + size],
+                             attr=(plan[i].key, plan[i].prefix),
+                             tenant=delta.tenant)
+                 for i in range(0, len(plan), size)]
+
+        def collect():
+            _raise_task_errors(tasks)
+            return [pair for t in tasks for pair in t.result]
         return collect
 
     k = 2
@@ -592,12 +807,32 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
         metrics.levels += 1
         metrics.candidates += len(cands)
         frequent = []
-        collect = _spawn_sweeps(cands)
-        sched.wait_all()
-        if df_miner is not None:
-            _raise_task_errors(detached_tasks)
-            df_miner.raise_errors()
-        for c, s in collect():
+        level: List[Tuple[Itemset, int]] = []
+        if delta is None:
+            collect = _spawn_sweeps(cands, None)
+            sched.wait_all()
+            if df_miner is not None:
+                _raise_task_errors(detached_tasks)
+                df_miner.raise_errors()
+            level = collect()
+        else:
+            clean, dirty, fresh = delta.classify_buckets(
+                group_by_prefix(cands))
+            level.extend(clean)                 # clean: zero rows read
+            delta.reused += len(clean)
+            delta.swept_full += len(fresh)
+            delta.swept_delta += sum(len(b.exts) for b in dirty)
+            collect_fresh = _spawn_sweeps(fresh, delta.base_segments)
+            collect_dirty = _spawn_delta_chunks(dirty)
+            sched.wait_all()
+            for c, s in collect_fresh():
+                delta.known[c] = s
+                level.append((c, s))
+            for c, d in collect_dirty():
+                s = delta.known[c] + d          # delta over pending segs
+                delta.known[c] = s
+                level.append((c, s))
+        for c, s in level:
             if s >= min_support:
                 result[c] = s
                 frequent.append(c)
@@ -655,10 +890,22 @@ class _ClassMiner:
     refcount would keep the slot from recycling). With depth-first drain
     order and spawn-onto-own-worker placement, each worker holds
     O(depth × branching) live rows instead of a whole level's worth;
-    the arena measures the peak (``metrics.peak_retained_bitmaps``)."""
+    the arena measures the peak (``metrics.peak_retained_bitmaps``).
+
+    With a ``delta`` plan each class splits its extensions into clean
+    known (support looked up, zero rows), dirty known (delta sweep over
+    the pending segments only) and fresh (full sweep over the generation
+    boundary), and a child subtree is recursed into ONLY when some
+    candidate in it is fresh or dirty — a clean subtree's results are
+    already exact in ``delta.known``, so whole equivalence classes are
+    skipped without touching a row. Diffset children are disabled under
+    delta (``allow_diffset=False``): a dirty diffset sweep would need
+    |parent ∩ e ∩ pending|, which the delta path does not carry;
+    tid-list children delta-sweep fine (the backend cuts the payload to
+    the pending segments' tid windows)."""
 
     def __init__(self, store, dispatcher, min_support, max_k, sched,
-                 metrics, result, model=None):
+                 metrics, result, delta=None, model=None):
         self.store = store
         self.dispatcher = dispatcher
         self.min_support = min_support
@@ -666,11 +913,25 @@ class _ClassMiner:
         self.sched = sched
         self.metrics = metrics
         self.result = result
+        self.delta = delta
         self.model = model
         self.n_w = store.n_words
         self.lock = threading.Lock()
         self.all_tasks: List = []
         self._obs = 0     # observe() sampling counter (racy is fine)
+
+    def needs_visit(self, cprefix: Itemset, csibs) -> bool:
+        """A class subtree can contain changed or never-swept itemsets
+        only if one of ITS OWN candidates is fresh or dirty: deeper dirt
+        implies a dirty candidate here (X ⊆ dirty items ⇒ every
+        sub-candidate too), and deeper freshness implies a frequency
+        status change here (supports only change where dirt is)."""
+        delta = self.delta
+        for e in csibs:
+            c = cprefix + (e,)
+            if delta.known.get(c) is None or delta.is_dirty(c):
+                return True
+        return False
 
     def _class_tids(self, ph: int, ptids_hint) -> np.ndarray:
         """P's explicit tid set, resolved once per class. A diffset's
@@ -718,7 +979,7 @@ class _ClassMiner:
                    exts: Tuple[int, ...], psup: Tuple[int, ...],
                    own_support: int, owned: bool,
                    ptids_hint=None, sub=None) -> None:
-        store, sched = self.store, self.sched
+        store, sched, delta = self.store, self.sched, self.delta
         min_support, model = self.min_support, self.model
         children: List[Tuple[Itemset, int, Tuple[int, ...],
                              Tuple[int, ...], int, object, object]] = []
@@ -731,7 +992,10 @@ class _ClassMiner:
             # child is a positional tid mask whose sweep reads its bools
             # however it was notionally encoded, so a diffset's smaller
             # size buys nothing there and the model must not price it
-            host = disp.backend.host_parallel
+            host = delta is None and disp.backend.host_parallel
+            pbits = None      # the sweep's own [E, S] payload∩ext matrix
+            fresh_e: List[int] = []
+            dirty_e: List[int] = []
             if sub is not None:
                 # projected class: ``sub`` is the subtree root's bit
                 # matrix, row-selected to this class's extensions and
@@ -750,8 +1014,8 @@ class _ClassMiner:
                 sparse = rep != tidlist.REP_BITMAP
                 payload = len(store.tids_of(ph)) if sparse else 0
                 is_diff = rep == tidlist.REP_DIFFSET
+            if sub is None and delta is None:
                 st.sweeps_submitted += 1
-                # pbits: the sweep's own [E, S] payload∩ext matrix
                 counts, pbits = disp.sweep_bits(ph, exts)
                 if is_diff:
                     # dEclat arithmetic: the backend counted |diff ∩ e|;
@@ -760,6 +1024,48 @@ class _ClassMiner:
                                 in enumerate(zip(exts, counts))]
                 else:
                     supports = [(e, int(s)) for e, s in zip(exts, counts)]
+            elif delta is not None:
+                supports = []
+                for e in exts:
+                    c = prefix + (e,)
+                    ks = delta.known.get(c)
+                    if ks is None:
+                        fresh_e.append(e)
+                    elif delta.is_dirty(c):
+                        dirty_e.append(e)
+                    else:
+                        supports.append((e, ks))    # clean: zero rows
+                n_clean = len(supports)
+                # both sweeps go out before either result is awaited, so
+                # they share a dispatcher flush; fresh sweeps read the
+                # generation-boundary segments, never ones an overlapped
+                # ingest appended mid-refresh
+                ffut = (disp.submit(ph, tuple(fresh_e),
+                                    segments=delta.base_segments)
+                        if fresh_e else None)
+                dfut = (disp.submit(ph, tuple(dirty_e),
+                                    segments=delta.segments)
+                        if dirty_e else None)
+                updates: Dict[Itemset, int] = {}
+                if ffut is not None:
+                    st.sweeps_submitted += 1
+                    for e, s in zip(fresh_e, ffut.result()):
+                        updates[prefix + (e,)] = int(s)
+                        supports.append((e, int(s)))
+                if dfut is not None:
+                    st.sweeps_submitted += 1
+                    for e, d in zip(dirty_e, dfut.result()):
+                        c = prefix + (e,)
+                        s = delta.known[c] + int(d)
+                        updates[c] = s
+                        supports.append((e, s))
+                with delta.lock:
+                    delta.known.update(updates)
+                    delta.swept_full += len(fresh_e)
+                    delta.swept_delta += len(dirty_e)
+                    delta.reused += n_clean
+                supports.sort()       # merged lists back to ext order
+            swept = len(fresh_e) + len(dirty_e)
             if model is not None and supports:
                 # sampled EWMA: the gauge steers granularity detach
                 # decisions, not per-child picks — every 4th class is
@@ -777,9 +1083,13 @@ class _ClassMiner:
                 # each child ext) resolves and gathers ONCE per class
                 plan = [(i, e, csup,
                          "bitmap" if model is None
-                         else model.pick_child_rep(own_support, csup,
-                                                   allow_diffset=not host))
-                        for i, (e, csup) in enumerate(freq[:-1])]
+                         else model.pick_child_rep(
+                             own_support, csup,
+                             allow_diffset=delta is None and not host))
+                        for i, (e, csup) in enumerate(freq[:-1])
+                        # a clean subtree's supports are exact in known
+                        if delta is None or self.needs_visit(
+                            prefix + (e,), tuple(sibs[i + 1:]))]
                 # host backends mine sparse subtrees PROJECTED: the
                 # sweep's bit matrix, row-selected to the frequent
                 # siblings, IS the dEclat recursion state. The kernel
@@ -791,7 +1101,7 @@ class _ClassMiner:
                 ptids = None  # P's tid set, resolved at most once
                 bcol: Dict[int, int] = {}   # ext -> row in bit matrix
                 bmat = None
-                if proj:
+                if proj and plan:
                     if pbits is not None and not is_diff:
                         eidx = {e: j for j, e in enumerate(exts)}
                         fmat = pbits[[eidx[f] for f in sibs]]
@@ -799,7 +1109,7 @@ class _ClassMiner:
                         ptids = self._class_tids(ph, ptids_hint)
                         fmat = store.gather_bits_rows(ptids, sibs)
                         child_bytes += len(ptids) * 4
-                elif not host:
+                elif plan and not host:
                     carve = [p for p in plan
                              if p[3] != "bitmap"
                              or rep != tidlist.REP_BITMAP]
@@ -839,22 +1149,43 @@ class _ClassMiner:
                                      csup,
                                      ptids if crep == "diffset" else None,
                                      None))
-            rows = class_rows_touched(len(exts), len(children))
-            st.rows_touched += rows
-            if sparse:
-                # gather-intersect passes: the payload once per extension
-                # (plus once for itself), never W words — plus the
-                # measured child-handoff reads. Projected classes read
-                # exactly their bit matrix.
-                sb = (sub.nbytes if sub is not None
-                      else payload * 4 * (1 + len(exts)))
-                st.bytes_swept += sb + child_bytes
-                st.sparse_bytes_swept += sb + child_sparse_bytes
-                st.sparse_sweeps += 1
+            if delta is None:
+                rows = class_rows_touched(len(exts), len(children))
+                st.rows_touched += rows
+                if sparse:
+                    # gather-intersect passes: the payload once per
+                    # extension (plus once for itself), never W words —
+                    # plus the measured child-handoff reads. Projected
+                    # classes read exactly their bit matrix.
+                    sb = (sub.nbytes if sub is not None
+                          else payload * 4 * (1 + len(exts)))
+                    st.bytes_swept += sb + child_bytes
+                    st.sparse_bytes_swept += sb + child_sparse_bytes
+                else:
+                    st.bytes_swept += rows_to_bytes(rows, self.n_w)
+                    st.sparse_bytes_swept += child_sparse_bytes
             else:
-                st.bytes_swept += rows_to_bytes(rows, self.n_w)
-                st.sparse_bytes_swept += child_sparse_bytes
-                st.dense_sweeps += 1
+                # only what was read: the handed prefix row (when any
+                # sweep ran), swept extension rows (dirty ones only over
+                # the pending segments' words) and child handoffs
+                seg_w = sum(store.seg_words(g) for g in delta.segments)
+                full_rows = ((1 if swept else 0) + len(fresh_e)
+                             + len(children))
+                st.rows_touched += full_rows + len(dirty_e)
+                if sparse:
+                    sb = (payload * 4 * (1 + len(fresh_e) + len(dirty_e))
+                          + child_bytes)
+                    st.bytes_swept += sb
+                    st.sparse_bytes_swept += sb
+                else:
+                    st.bytes_swept += (rows_to_bytes(full_rows, self.n_w)
+                                       + rows_to_bytes(len(dirty_e), seg_w))
+                    st.sparse_bytes_swept += child_sparse_bytes
+            if swept or delta is None:
+                if sparse:
+                    st.sparse_sweeps += 1
+                else:
+                    st.dense_sweeps += 1
             with self.lock:
                 metrics = self.metrics
                 metrics.buckets += 1
@@ -888,10 +1219,15 @@ class _ClassMiner:
 
     def spawn(self, prefix: Itemset, ph: int, exts, psup,
               own_support: int, owned: bool, ptids_hint=None, sub=None):
+        delta = self.delta
         return self.sched.spawn(
             self.class_task, prefix, ph, exts, psup, own_support, owned,
             ptids_hint, sub, attr=(itemset_hash(prefix), prefix),
-            depth=len(prefix), handles=(ph,) if owned else ())
+            depth=len(prefix),
+            priority=(delta.priority_of(prefix)
+                      if delta is not None and delta.priority_of else 0.0),
+            tenant=delta.tenant if delta is not None else None,
+            handles=(ph,) if owned else ())
 
     def spawn_roots(self, frequent, result) -> None:
         """One class per root item (the depth-first engine). Root
@@ -904,6 +1240,8 @@ class _ClassMiner:
         sup = {p[0]: result[p] for p in frequent}
         for i, it in enumerate(items[:-1]):
             sibs = tuple(items[i + 1:])
+            if self.delta is not None and not self.needs_visit((it,), sibs):
+                continue              # clean root class: skip entirely
             t = self.spawn((it,), it, sibs, tuple(sup[e] for e in sibs),
                            sup[it], False)
             with self.lock:   # already-running roots append concurrently
@@ -916,10 +1254,10 @@ class _ClassMiner:
 
 
 def _mine_depth_first(store, dispatcher, min_support, max_k, sched,
-                      metrics, result, frequent, model=None):
+                      metrics, result, frequent, delta=None, model=None):
     """Barrier-free engine: see :class:`_ClassMiner`."""
     miner = _ClassMiner(store, dispatcher, min_support, max_k, sched,
-                        metrics, result, model=model)
+                        metrics, result, delta=delta, model=model)
     miner.spawn_roots(frequent, result)
     sched.wait_all()                            # the ONLY wait
     miner.raise_errors()

@@ -20,10 +20,12 @@ Backends implement the same batched API:
   numpy   per-request ``tidlist.support_counts`` over zero-copy arena
           row views — GIL-released ufunc passes on the host. It runs
           only when asked for by name.
-  torch   the kernel backend: dense prefixes go to ``bitmap_join_many``
-          and sparse (tid-list/diffset) prefixes to
-          ``gather_intersect_many``, whose indexed entries read prefix and
-          extension rows from the arena's mirror by handle. An arena with
+  torch   the kernel backend: dense prefixes (one row or a tuple of
+          rows) go to ``bitmap_join_many`` and sparse (tid-list/diffset)
+          prefixes to ``gather_intersect_many``, launched once per
+          transaction segment a flush touches; their indexed entries read
+          prefix and extension rows from that segment's device mirror by
+          handle. An arena with
           no mirror (backing "numpy") has each batch's rows gathered on
           the host and uploaded per launch to the kernels' gathered
           forms. On a CUDA arena the wrappers launch the CUDA kernels; on
@@ -53,24 +55,64 @@ from repro_torch.obs import schema as obs_schema
 # before flushing a partial batch.
 MAX_BATCH = 32
 FLUSH_US = 200.0
+# Straggler cap once a QUERY-class (priority) request is pending: a
+# serving query still coalesces into whatever flush is forming, but it
+# does not sit out the full mining straggler window — the p99 a lone
+# query pays is bounded by this, not FLUSH_US.
+QUERY_FLUSH_US = 50.0
 
 
 @dataclass
 class SweepRequest:
-    """One bucket sweep, by handle: counts[i] = |row(prefix) ∧ row(ext_i)|.
+    """One bucket sweep, by handle: counts[i] = |P ∧ row(ext_i)|.
+
+    ``prefix_handle`` is one arena handle (``P`` is its row: a cached or
+    materialized prefix, or a base item row), or a TUPLE of handles whose
+    rows the backend AND-reduces per segment (``P`` is their
+    intersection): the streaming engine's delta and query sweeps name
+    base-item tuples, so a sweep over a few fresh words never builds a
+    full-width prefix intersection first. ``prefix_handles`` is the
+    prefix as a tuple either way.
+
+    ``segments`` restricts the join to a subset of the arena's
+    transaction segments (None = all; ``segment_ids`` resolves it): the
+    streaming engine's delta sweeps read only the freshly ingested
+    segments, and its fresh sweeps only the refresh's generation
+    boundary. The backend launches once per segment a flush touches and
+    sums the counts.
 
     When ``prefix_handle`` is a SPARSE arena row (tid-list or diffset),
     the backend runs the gather-intersect path and the counts are
     ``|payload ∩ ext_i|`` over the raw sparse payload — for a tid-list
     that IS the support, for a diffset it is the subtrahend. One flush
-    may mix representations; the backend partitions per launch."""
-    prefix_handle: int
+    may mix representations; the backend partitions per launch. Tuple
+    prefixes are always dense.
+
+    ``priority`` marks a QUERY-class request (the serving layer's
+    unknown-itemset sweeps): it goes to the front of the pending queue
+    and caps the dispatcher's straggler wait at ``QUERY_FLUSH_US``."""
+    prefix_handle: "int | Tuple[int, ...]"
     ext_handles: Tuple[int, ...]
+    segments: Optional[Tuple[int, ...]] = None
+    priority: bool = False
     future: Future = field(default_factory=Future)
 
+    @property
+    def prefix_handles(self) -> Tuple[int, ...]:
+        p = self.prefix_handle
+        return p if isinstance(p, tuple) else (p,)
+
+    def segment_ids(self, arena: BitmapArena) -> Tuple[int, ...]:
+        if self.segments is not None:
+            return self.segments
+        return tuple(range(arena.n_segments))
+
     def is_sparse(self, arena: BitmapArena) -> bool:
-        """True when the prefix row is a tid-list/diffset."""
-        return arena.rep_of(self.prefix_handle) != tidlist.REP_BITMAP
+        """True when the prefix row is a tid-list/diffset; tuple prefixes
+        AND base rows and are always dense."""
+        p = self.prefix_handle
+        return (not isinstance(p, tuple)
+                and arena.rep_of(p) != tidlist.REP_BITMAP)
 
 
 class JoinBackend:
@@ -93,9 +135,10 @@ class JoinBackend:
 
 class NumpyBackend(JoinBackend):
     """Zero-copy arena row views into the fused AND+popcount ufunc pass,
-    batched: a flush's dense requests are binned by padded E and each
-    bin executes as a few wide numpy passes (index gather → AND → fused
-    popcount); sparse requests gather one word per tid."""
+    batched: a flush's dense requests are grouped per segment and binned
+    by padded (L, E), and each bin executes as a few wide numpy passes
+    (index gather → AND-reduce → fused popcount); sparse requests gather
+    one word per tid."""
 
     name = "numpy"
     host_parallel = True
@@ -103,56 +146,100 @@ class NumpyBackend(JoinBackend):
     PASS_BYTES = 4 << 20
 
     def sweep_many(self, arena, requests):
-        totals: List[np.ndarray] = [None] * len(requests)
-        dense: List[int] = []
+        totals: List[Optional[np.ndarray]] = [None] * len(requests)
+        by_seg: Dict[int, List[int]] = {}
         for i, r in enumerate(requests):
             if r.is_sparse(arena):
-                totals[i] = self.sweep_sparse_bits(arena, r)[0]
-            else:
-                dense.append(i)
-        rows = arena.rows_view()
-        if len(dense) == 1:
-            i = dense[0]
-            totals[i] = self._sweep_one(rows, requests[i])
-        elif dense:
-            # bin by padded E so one fancy-index gather serves the bin
-            bins: Dict[int, List[int]] = {}
-            for i in dense:
-                bins.setdefault(pow2(len(requests[i].ext_handles)),
-                                []).append(i)
-            for ep, bi in sorted(bins.items()):
+                totals[i] = self._sweep_sparse(arena, r)
+                continue
+            for g in r.segment_ids(arena):
+                if arena.seg_words(g):   # skip zero-width segments
+                    by_seg.setdefault(g, []).append(i)
+        for g, idxs in sorted(by_seg.items()):
+            rows = arena.seg_view(g)
+            if len(idxs) == 1:
+                i = idxs[0]
+                c = self._sweep_one(rows, requests[i])
+                totals[i] = c if totals[i] is None else totals[i] + c
+                continue
+            # bin by padded (L, E) so one fancy-index gather serves the
+            # bin without per-request ragged handling
+            bins: Dict[Tuple[int, int], List[int]] = {}
+            for i in idxs:
+                r = requests[i]
+                key = (pow2(len(r.prefix_handles)), pow2(len(r.ext_handles)))
+                bins.setdefault(key, []).append(i)
+            for (lp, ep), bi in sorted(bins.items()):
                 counts = self._sweep_bin(rows, [requests[i] for i in bi],
-                                         ep)
+                                         lp, ep)
                 for j, i in enumerate(bi):
-                    totals[i] = counts[j, :len(requests[i].ext_handles)]
-        return totals
+                    c = counts[j, :len(requests[i].ext_handles)]
+                    totals[i] = c if totals[i] is None else totals[i] + c
+        return [t if t is not None else np.zeros(len(r.ext_handles), np.int64)
+                for t, r in zip(totals, requests)]
 
     @staticmethod
     def sweep_sparse_bits(arena, r):
-        """Sparse-prefix sweep: gather the ext word at every prefix tid
-        and test one bit — an [E, S] bit matrix, no [E, W] dense gather
-        copy. Returns ``(counts, bits)``, the bit columns aligned with
-        the prefix's sorted payload: a depth-first class task counts
-        with it and carves its children from it without gathering
-        again."""
+        """Full sparse-prefix sweep that also returns its bit matrix:
+        gather the ext word at every prefix tid and test one bit — an
+        [E, S] bit matrix, no [E, W] dense gather copy. Returns
+        ``(counts, bits)``, the bit columns aligned with the prefix's
+        sorted payload: a depth-first class task counts with it and
+        carves its children from it without gathering again."""
         bits = arena.gather_bits_rows(arena.tids_of(r.prefix_handle),
                                       r.ext_handles)
         return bits.sum(axis=1, dtype=np.int64), bits
 
     @staticmethod
-    def _sweep_one(rows, r):
-        return tidlist.support_counts(rows[r.prefix_handle],
-                                      rows[list(r.ext_handles)])
+    def _sweep_sparse(arena, r):
+        """Sparse-prefix sweep over the request's segments: the sorted
+        tid payload is searchsorted into each segment's global tid
+        window, and ``np.ix_`` outer-indexes the segment store into an
+        [E, S] word block — no [E, W] dense gather copy."""
+        out = np.zeros(len(r.ext_handles), np.int64)
+        tids = arena.tids_of(r.prefix_handle)
+        if not len(tids) or not len(r.ext_handles):
+            return out
+        eh = list(r.ext_handles)
+        for g in r.segment_ids(arena):
+            if not arena.seg_words(g):
+                continue
+            lo, hi = arena.seg_tid_range(g)
+            i0, i1 = np.searchsorted(tids, [lo, hi])
+            if i0 == i1:
+                continue
+            t = tids[i0:i1].astype(np.int64) - lo
+            words = arena.seg_view(g)[np.ix_(eh, t >> 5)]       # [E, S]
+            out += ((words >> (t & 31).astype(np.uint32)[None, :])
+                    & np.uint32(1)).sum(axis=1, dtype=np.int64)
+        return out
 
-    def _sweep_bin(self, rows, reqs, ep):
-        """[B, E]-batched sweep: extension pads gather row 0 and are
-        sliced off by the caller."""
+    @staticmethod
+    def _sweep_one(rows, r):
+        """Single-request path: no padding copies, and
+        ``support_counts`` chunks its own [E, W] temporary."""
+        ph = r.prefix_handles
+        prefix = rows[ph[0]]
+        for h in ph[1:]:              # tuple prefix: AND per segment
+            prefix = prefix & rows[h]
+        return tidlist.support_counts(prefix, rows[list(r.ext_handles)])
+
+    def _sweep_bin(self, rows, reqs, lp, ep):
+        """[B, E]-batched sweep over one segment: prefix tuples pad by
+        repeating their first handle (AND-idempotent), extension pads
+        gather row 0 and are sliced off by the caller."""
         b = len(reqs)
         w = rows.shape[1]
+        pidx = np.zeros((b, lp), np.int64)
         eidx = np.zeros((b, ep), np.int64)
         for i, r in enumerate(reqs):
+            ph = r.prefix_handles
+            pidx[i] = ph + (ph[0],) * (lp - len(ph))
             eidx[i, :len(r.ext_handles)] = r.ext_handles
-        prefix = rows[[r.prefix_handle for r in reqs]]
+        pr = rows[pidx.ravel()].reshape(b, lp, w)
+        prefix = pr[:, 0]
+        for j in range(1, lp):
+            prefix = prefix & pr[:, j]
         out = np.empty((b, ep), np.int64)
         step = max(1, self.PASS_BYTES // max(ep * w * 4, 1))
         for lo in range(0, b, step):
@@ -169,10 +256,17 @@ E_PAD_FLOOR = 64
 
 
 class TorchBackend(JoinBackend):
-    """The kernel backend: ``bitmap_join_many_rows`` for the dense
-    requests of a flush and ``gather_intersect_many_rows`` for the sparse
-    ones — at most two launches per flush — both reading extension and
-    prefix rows by index straight out of the arena's device mirror.
+    """The kernel backend: per transaction segment a flush touches,
+    ``bitmap_join_many_rows`` for its dense requests and
+    ``gather_intersect_many_rows`` for its sparse ones — at most two
+    launches per (flush, segment), so a one-segment arena (every batch
+    mine) makes at most two per flush — each reading extension and
+    prefix rows by index straight out of that segment's device mirror;
+    the counts of a request's segments are summed. A tuple prefix goes
+    to the dense kernel as a ``[B, L]`` index row, -1 past the tuple's
+    end, and the kernel ANDs the tuple itself; a flush whose prefixes
+    are all single rows passes ``[B]``. A sparse prefix's tids are
+    searchsorted into the segment's tid window and rebased to it.
 
     Each launch stages its int32 index array (``[pidx | eidx]`` dense,
     ``[eidx | lens | tids]`` sparse) in one host buffer, pinned on a CUDA
@@ -184,12 +278,13 @@ class TorchBackend(JoinBackend):
     [B', S'] size (``E_PAD_FLOOR``), computed, not shipped.
 
     An arena without a mirror (backing "numpy") takes the host-gather
-    path instead: the batch's rows are gathered on the host into the
-    reference's padded ``[B', E', W]`` shape (pad requests and lanes
-    name row 0, and their counts are sliced off), written straight into
-    the same staging buffer, shipped with the one copy and swept by the
-    gathered forms ``bitmap_join_many`` / ``gather_intersect_many``; the
-    rows are billed to ``h2d_bytes`` as the reference bills them."""
+    path instead: the segment's rows are gathered on the host into the
+    reference's padded ``[B', E', W_seg]`` shape (tuple prefixes ANDed
+    there; pad requests and lanes name row 0, and their counts are
+    sliced off), written straight into the same staging buffer, shipped
+    with the one copy and swept by the gathered forms
+    ``bitmap_join_many`` / ``gather_intersect_many``; the rows are billed
+    to ``h2d_bytes`` as the reference bills them."""
 
     name = "torch"
 
@@ -199,19 +294,25 @@ class TorchBackend(JoinBackend):
 
     def sweep_many(self, arena, requests):
         totals = [np.zeros(len(r.ext_handles), np.int64) for r in requests]
-        if not arena.n_words:
-            return totals
-        dense = [i for i, r in enumerate(requests) if not r.is_sparse(arena)]
-        sparse = [i for i, r in enumerate(requests) if r.is_sparse(arena)]
-        for part, fn in ((dense, self._sweep_dense),
-                         (sparse, self._sweep_sparse)):
-            if not part:
-                continue
-            # a view of the reused read-back buffer: consumed here,
-            # before the next launch refills it
-            counts = fn(arena, [requests[i] for i in part])
-            for j, i in enumerate(part):
-                totals[i] += counts[j, :len(requests[i].ext_handles)]
+        # sub-batch per segment: full sweeps touch every segment, delta
+        # sweeps only the fresh ones
+        by_seg: Dict[int, List[int]] = {}
+        for i, r in enumerate(requests):
+            for g in r.segment_ids(arena):
+                if arena.seg_words(g):
+                    by_seg.setdefault(g, []).append(i)
+        for g, idxs in sorted(by_seg.items()):
+            dense = [i for i in idxs if not requests[i].is_sparse(arena)]
+            sparse = [i for i in idxs if requests[i].is_sparse(arena)]
+            for part, fn in ((dense, self._sweep_dense),
+                             (sparse, self._sweep_sparse)):
+                if not part:
+                    continue
+                # a view of the reused read-back buffer: consumed here,
+                # before the next launch refills it
+                counts = fn(arena, g, [requests[i] for i in part])
+                for j, i in enumerate(part):
+                    totals[i] += counts[j, :len(requests[i].ext_handles)]
         return totals
 
     @staticmethod
@@ -229,8 +330,8 @@ class TorchBackend(JoinBackend):
         The buffer is refilled only after the previous launch's counts
         were read back, which synchronises the stream (``_launch``): by
         then the non-blocking copy that read the buffer has completed.
-        The dense and sparse launches of one flush share the buffer on
-        that condition. A CPU test cannot show this race."""
+        All launches of one flush share the buffer on that condition. A
+        CPU test cannot show this race."""
         self._stage, host = self._host(self._stage, n, device)
         return host.numpy()
 
@@ -253,62 +354,88 @@ class TorchBackend(JoinBackend):
         for i, r in enumerate(requests):
             eidx[i, :len(r.ext_handles)] = r.ext_handles
 
-    @classmethod
-    def _gather_exts(cls, arena, requests, bp, ep, out):
-        """The host rows of every request's extensions, padded to
-        [bp, ep], into the staged view ``out``. Pad lanes carry -1,
-        which ``take``'s clip mode reads as row 0; their counts are
-        sliced off."""
-        eidx = np.empty((bp, ep), np.int64)
-        cls._fill_eidx(eidx, requests)
-        cls._gather_into(arena, eidx.ravel(), out)
+    @staticmethod
+    def _fill_pidx(pidx, requests):
+        """Prefix tuples into [B, L] (-1 past each tuple's end)."""
+        pidx.fill(-1)
+        for i, r in enumerate(requests):
+            pidx[i, :len(r.prefix_handles)] = r.prefix_handles
 
     @staticmethod
-    def _gather_into(arena, handles, out):
-        """Host rows of ``handles`` into the staged uint32 view ``out``."""
-        np.take(arena.rows_view(), handles, axis=0, mode="clip",
+    def _gather_into(rows, handles, out):
+        """Host rows of ``handles`` into the staged uint32 view ``out``;
+        a pad handle of -1 reads as row 0 (``take``'s clip mode)."""
+        np.take(rows, handles, axis=0, mode="clip",
                 out=out.view(np.uint32).reshape(len(handles), -1))
 
-    def _sweep_dense(self, arena, requests):
+    @classmethod
+    def _gather_exts(cls, rows, requests, bp, ep, out):
+        """The host rows of every request's extensions, padded to
+        [bp, ep], into the staged view ``out``; pad counts are sliced
+        off."""
+        eidx = np.empty((bp, ep), np.int64)
+        cls._fill_eidx(eidx, requests)
+        cls._gather_into(rows, eidx.ravel(), out)
+
+    def _sweep_dense(self, arena, seg, requests):
         b = len(requests)
         e = max(len(r.ext_handles) for r in requests)
-        mirror = arena.device_rows()
+        lmax = max(len(r.prefix_handles) for r in requests)
+        mirror = arena.device_rows(seg)
         if mirror is None:
-            return self._sweep_dense_gathered(arena, requests, e)
-        host = self._staged(mirror.device, b + b * e)
-        host[:b] = [r.prefix_handle for r in requests]
-        self._fill_eidx(host[b:].reshape(b, e), requests)
-        return self._launch(mirror.device, b + b * e, lambda idx: (
-            bitmap_join_many_rows(mirror, idx[:b], mirror,
-                                  idx[b:].view(b, e), arena.n_words)))
+            return self._sweep_dense_gathered(arena, seg, requests, e, lmax)
+        np_ = b * lmax
+        host = self._staged(mirror.device, np_ + b * e)
+        self._fill_pidx(host[:np_].reshape(b, lmax), requests)
+        self._fill_eidx(host[np_:].reshape(b, e), requests)
+        # single-row prefixes keep the [B] index of a batch mine
+        shape = (b, lmax) if lmax > 1 else (b,)
+        return self._launch(mirror.device, np_ + b * e, lambda idx: (
+            bitmap_join_many_rows(mirror, idx[:np_].view(shape), mirror,
+                                  idx[np_:].view(b, e),
+                                  arena.seg_words(seg))))
 
-    def _sweep_dense_gathered(self, arena, requests, e):
-        """Host-gather dense sweep: ``[prefixes [B', W] | exts [B', E',
-        W]]`` staged as one array, billed ``(B' + B'·E')·W·4`` bytes."""
-        b, w = len(requests), arena.n_words
+    def _sweep_dense_gathered(self, arena, seg, requests, e, lmax):
+        """Host-gather dense sweep of one segment: ``[prefixes [B', W] |
+        exts [B', E', W]]`` staged as one array, each tuple prefix ANDed
+        on the host first, billed ``(B' + B'·E')·W·4`` bytes."""
+        b, w = len(requests), arena.seg_words(seg)
         bp, ep = pow2(b), pow2(e, lo=E_PAD_FLOOR)
-        pidx = np.zeros(bp, np.int64)
-        pidx[:b] = [r.prefix_handle for r in requests]
+        rows = arena.seg_view(seg)
+        pidx = np.zeros((bp, lmax), np.int64)
+        for i, r in enumerate(requests):
+            ph = r.prefix_handles
+            # pad by repeating the first handle: AND-idempotent
+            pidx[i] = ph + (ph[0],) * (lmax - len(ph))
         n = bp * w + bp * ep * w
         host = self._staged(arena.device, n)
-        self._gather_into(arena, pidx, host[:bp * w])
-        self._gather_exts(arena, requests, bp, ep, host[bp * w:])
+        self._gather_into(rows, pidx[:, 0], host[:bp * w])
+        prefixes = host[:bp * w].view(np.uint32).reshape(bp, w)
+        for j in range(1, lmax):
+            prefixes &= rows[pidx[:, j]]
+        self._gather_exts(rows, requests, bp, ep, host[bp * w:])
         arena.count_h2d((bp + bp * ep) * w * 4)
         return self._launch(arena.device, n, lambda x: bitmap_join_many(
             x[:bp * w].view(bp, w), x[bp * w:].view(bp, ep, w)))
 
-    def _sweep_sparse(self, arena, requests):
-        """Sparse sub-batch: prefixes are tid/diffset payloads, shipped
-        host→device per launch (billed at the reference's padded [B', S']
-        int32 array — sparse rows have no mirror payload)."""
+    def _sweep_sparse(self, arena, seg, requests):
+        """Sparse sub-batch of one segment: prefixes are tid/diffset
+        payloads cut to the segment's tid window and rebased to it,
+        shipped host→device per launch (billed at the reference's padded
+        [B', S'] int32 array — sparse rows have no mirror payload)."""
         b = len(requests)
         e = max(len(r.ext_handles) for r in requests)
-        payloads = [arena.tids_of(r.prefix_handle) for r in requests]
+        lo, hi = arena.seg_tid_range(seg)
+        payloads = []
+        for r in requests:
+            tids = arena.tids_of(r.prefix_handle)
+            i0, i1 = np.searchsorted(tids, [lo, hi])
+            payloads.append(tids[i0:i1].astype(np.int64) - lo)
         s = max(1, max(len(t) for t in payloads))
-        mirror = arena.device_rows()
+        mirror = arena.device_rows(seg)
         if mirror is None:
-            return self._sweep_sparse_gathered(arena, requests, payloads,
-                                               e, s)
+            return self._sweep_sparse_gathered(arena, seg, requests,
+                                               payloads, e, s)
         arena.count_h2d(pow2(b) * pow2(s, lo=E_PAD_FLOOR) * 4)
         n = b * e + b + b * s
         host = self._staged(mirror.device, n)
@@ -321,13 +448,13 @@ class TorchBackend(JoinBackend):
         return self._launch(mirror.device, n, lambda idx: (
             gather_intersect_many_rows(
                 idx[b * e + b:].view(b, s), idx[b * e:b * e + b], mirror,
-                idx[:b * e].view(b, e), arena.n_words)))
+                idx[:b * e].view(b, e), arena.seg_words(seg))))
 
-    def _sweep_sparse_gathered(self, arena, requests, payloads, e, s):
-        """Host-gather sparse sweep: ``[tids [B', S'] | exts [B', E',
-        W]]`` staged as one array (tids padded with -1), billed
-        ``(B'·E'·W + B'·S')·4`` bytes."""
-        b, w = len(requests), arena.n_words
+    def _sweep_sparse_gathered(self, arena, seg, requests, payloads, e, s):
+        """Host-gather sparse sweep of one segment: ``[tids [B', S'] |
+        exts [B', E', W]]`` staged as one array (tids padded with -1),
+        billed ``(B'·E'·W + B'·S')·4`` bytes."""
+        b, w = len(requests), arena.seg_words(seg)
         bp, ep, sp = pow2(b), pow2(e, lo=E_PAD_FLOOR), pow2(s, lo=E_PAD_FLOOR)
         n = bp * sp + bp * ep * w
         host = self._staged(arena.device, n)
@@ -335,7 +462,8 @@ class TorchBackend(JoinBackend):
         tids.fill(-1)
         for i, t in enumerate(payloads):
             tids[i, :len(t)] = t
-        self._gather_exts(arena, requests, bp, ep, host[bp * sp:])
+        self._gather_exts(arena.seg_view(seg), requests, bp, ep,
+                          host[bp * sp:])
         arena.count_h2d((bp * ep * w + bp * sp) * 4)
         return self._launch(arena.device, n, lambda x: gather_intersect_many(
             x[:bp * sp].view(bp, sp), x[bp * sp:].view(bp, ep, w)))
@@ -388,7 +516,8 @@ class SweepDispatcher:
         request can arrive and waiting longer is pure latency; or
       * ``flush_us`` elapsed since the flush started forming — bounding
         the latency a lone straggler pays when other workers are busy
-        with non-sweep work.
+        with non-sweep work; ``query_flush_us`` once a priority (query)
+        request is pending.
 
     Errors from the backend resolve every future in the flight batch,
     so task bodies re-raise through the scheduler's normal task-error
@@ -399,6 +528,7 @@ class SweepDispatcher:
     def __init__(self, arena: BitmapArena, backend: JoinBackend,
                  n_clients: int, max_batch: int = MAX_BATCH,
                  flush_us: float = FLUSH_US, shard: int = 0,
+                 query_flush_us: float = QUERY_FLUSH_US,
                  tracer=None, trace_pid: int = 0):
         self.arena = arena
         self.backend = backend
@@ -409,15 +539,19 @@ class SweepDispatcher:
         self.n_clients = max(1, n_clients)
         self.max_batch = max(1, max_batch)
         self.flush_s = max(0.0, flush_us) * 1e-6
+        self.query_flush_s = max(0.0, query_flush_us) * 1e-6
         self.shard = shard
         self.sweep_s = 0.0            # backend busy time (s)
         self._pending: List[SweepRequest] = []
+        self._n_priority = 0          # priority requests in _pending
         self._cv = threading.Condition()
         self._stop = False
         self.flushes = 0
         self.requests = 0
-        # dispatcher-thread flushes only (sweep_bits' inline sweeps bill
-        # themselves as flushes but never coalesce with anything)
+        self.query_requests = 0       # priority (serving) requests seen
+        # dispatcher-thread flushes only (sweep_local's and sweep_bits'
+        # inline sweeps bill themselves as flushes but never coalesce
+        # with anything)
         self.queue_flushes = 0
         self.queue_requests = 0
         self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -425,33 +559,106 @@ class SweepDispatcher:
         self._thread.start()
 
     # ------------------------------------------------------------ client --
-    def submit(self, prefix_handle: int,
-               ext_handles: Sequence[int]) -> Future:
-        req = SweepRequest(int(prefix_handle), tuple(ext_handles))
+    def _make_requests(self, sweeps: Sequence[Tuple],
+                       segments: Optional[Sequence[int]],
+                       priority: bool = False) -> List[SweepRequest]:
+        segs = tuple(segments) if segments is not None else None
+        return [SweepRequest(
+                    (tuple(int(h) for h in p) if isinstance(p, tuple)
+                     else int(p)),
+                    tuple(e), segments=segs, priority=priority)
+                for p, e in sweeps]
+
+    def _enqueue(self, reqs: List[SweepRequest], priority: bool) -> None:
         with self._cv:
             if self._stop:
                 raise RuntimeError("dispatcher is stopped")
-            self._pending.append(req)
+            if priority:
+                # the burst jumps the queue, its own order kept
+                self._pending[:0] = reqs
+                self._n_priority += len(reqs)
+                self.query_requests += len(reqs)
+            else:
+                self._pending.extend(reqs)
             self._cv.notify_all()
+
+    def submit(self, prefix_handle, ext_handles: Sequence[int],
+               segments: Optional[Sequence[int]] = None,
+               priority: bool = False) -> Future:
+        """Enqueue one sweep; ``prefix_handle`` is a handle or a tuple of
+        handles, ``segments`` restricts it to a segment subset."""
+        req = self._make_requests([(prefix_handle, ext_handles)],
+                                  segments, priority)[0]
+        self._enqueue([req], priority)
         return req.future
 
-    def sweep(self, prefix_handle: int,
-              ext_handles: Sequence[int]) -> np.ndarray:
+    def submit_many(self, sweeps: Sequence[Tuple],
+                    segments: Optional[Sequence[int]] = None,
+                    priority: bool = False) -> List[Future]:
+        """Enqueue a burst of ``(prefix, ext_handles)`` sweeps under one
+        lock acquisition and one wakeup — the streaming delta path's
+        coalescing entry point. ``priority=True`` marks the burst as
+        query-class: it goes to the front of the pending queue (order
+        kept within the burst) and shortens the straggler wait to
+        ``query_flush_us``."""
+        reqs = self._make_requests(sweeps, segments, priority)
+        self._enqueue(reqs, priority)
+        return [r.future for r in reqs]
+
+    def sweep_local(self, sweeps: Sequence[Tuple],
+                    segments: Optional[Sequence[int]] = None
+                    ) -> List[np.ndarray]:
+        """Execute a burst of ``(prefix, ext_handles)`` sweeps and return
+        counts arrays aligned with ``sweeps``.
+
+        A host-parallel backend runs the burst on the calling thread (its
+        ufunc passes release the GIL, so workers' bursts run in
+        parallel) and bills it as one flush of ``len(sweeps)`` requests.
+        The kernel backend goes through :meth:`submit_many`, so only the
+        dispatcher thread touches the device and the burst coalesces into
+        its launches."""
+        if not sweeps:
+            return []
+        if not self.backend.host_parallel:
+            return [f.result()
+                    for f in self.submit_many(sweeps, segments=segments)]
+        reqs = self._make_requests(sweeps, segments)
+        with self._cv:
+            if self._stop:
+                raise RuntimeError("dispatcher is stopped")
+            self.flushes += 1
+            self.requests += len(reqs)
+        t0 = time.perf_counter()
+        results = self.backend.sweep_many(self.arena, reqs)
+        with self._cv:
+            self.sweep_s += time.perf_counter() - t0
+        if self.tracer is not None:
+            # inline burst: the flush span lands on the calling worker's
+            # lane (that is where the time went)
+            self.tracer.span("flush", t0, cat="flush",
+                             args=self._flush_args(reqs, inline=True))
+        return results
+
+    def sweep(self, prefix_handle, ext_handles: Sequence[int],
+              segments: Optional[Sequence[int]] = None) -> np.ndarray:
         """Blocking convenience: enqueue and wait for the counts."""
         tr = self.tracer
         if tr is None:
-            return self.submit(prefix_handle, ext_handles).result()
+            return self.submit(prefix_handle, ext_handles,
+                               segments=segments).result()
         t0 = tr.now()
-        counts = self.submit(prefix_handle, ext_handles).result()
+        counts = self.submit(prefix_handle, ext_handles,
+                             segments=segments).result()
         # caller-side wait: nests inside the worker's task span
         tr.span("sweep", t0, cat="sweep", args={"ext": len(ext_handles)})
         return counts
 
     def sweep_bits(self, prefix_handle: int, ext_handles: Sequence[int]
                    ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
-        """Depth-first class sweep: ``(counts, bits)``, where ``bits`` is
-        the [E, S] payload∩ext matrix of the same gather the counts came
-        from (sparse prefixes on host-parallel backends; None otherwise).
+        """Depth-first class sweep over every segment: ``(counts,
+        bits)``, where ``bits`` is the [E, S] payload∩ext matrix of the
+        same gather the counts came from (sparse prefixes on
+        host-parallel backends; None otherwise).
 
         Host-parallel backends run inline on the calling thread: one
         class sweep is one vectorized pass, cheaper than the enqueue →
@@ -491,21 +698,26 @@ class SweepDispatcher:
         return obs_schema.device_stats(
             {"device": self.shard, "flushes": self.flushes,
              "sweep_requests": self.requests,
+             "query_requests": self.query_requests,
              "queue_flushes": self.queue_flushes,
              "queue_requests": self.queue_requests,
              "sweep_s": self.sweep_s})
 
-    def _flush_args(self, batch: Sequence[SweepRequest]
-                    ) -> Dict[str, float]:
+    def _flush_args(self, batch: Sequence[SweepRequest],
+                    inline: bool = False) -> Dict[str, float]:
         """Span payload for one flush: occupancy, an upper-bound byte
-        figure (rows × full arena width) and the dense/sparse split.
-        Only runs when a tracer is attached."""
+        figure (rows × full arena width — segment-restricted sweeps read
+        less), the dense/sparse split and the query count. Only runs
+        when a tracer is attached."""
         arena = self.arena
-        rows = sum(1 + len(r.ext_handles) for r in batch)
+        rows = sum(len(r.prefix_handles) + len(r.ext_handles)
+                   for r in batch)
         sparse = sum(1 for r in batch if r.is_sparse(arena))
         return {"requests": len(batch), "occupancy": len(batch),
                 "rows": rows, "batch_bytes": rows * arena.n_words * 4,
-                "sparse": sparse, "dense": len(batch) - sparse}
+                "sparse": sparse, "dense": len(batch) - sparse,
+                "queries": sum(1 for r in batch if r.priority),
+                "inline": inline}
 
     # -------------------------------------------------------------- loop --
     def _loop(self):
@@ -523,12 +735,19 @@ class SweepDispatcher:
                 if len(self._pending) < full and not self._stop:
                     deadline = time.monotonic() + self.flush_s
                     while len(self._pending) < full and not self._stop:
+                        # a pending query caps the straggler wait; the
+                        # cap re-applies on every pass, so a query that
+                        # arrives mid-wait also shortens the window
+                        if self._n_priority:
+                            deadline = min(deadline, time.monotonic()
+                                           + self.query_flush_s)
                         left = deadline - time.monotonic()
                         if left <= 0:
                             break
                         self._cv.wait(timeout=left)
                 batch = self._pending[:self.max_batch]
                 del self._pending[:self.max_batch]
+                self._n_priority -= sum(1 for r in batch if r.priority)
                 self.flushes += 1
                 self.requests += len(batch)
                 self.queue_flushes += 1

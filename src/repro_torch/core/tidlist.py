@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -243,22 +243,36 @@ class BitmapArena:
     Sparse rows (tid-lists and dEclat diffsets) share the handle space,
     refcounting and accounting with word-column rows but carry their
     payload as a uint32 tid array; their word-column slot is dead and the
-    device mirror keeps it zeroed.
+    device mirrors keep it zeroed.
 
-    The device mirror (:meth:`device_rows`) is one int32 tensor on
-    ``device``, kept in sync incrementally: only rows appended or
-    recycled since the last sync cross host→device, and their payload
-    bytes accumulate in ``h2d_bytes``. Host-only backends never call it.
-    ``device=None`` means the CUDA card and raises ``RuntimeError`` when
-    there is none; the mirror lives on the CPU only when the caller
-    passes ``"cpu"``.
+    Segmented transaction axis (streaming ingest): the store is a list
+    of per-segment ``[cap, W_seg]`` word-column blocks sharing one slot
+    space. :meth:`add_segment` appends a fresh block holding the new
+    transactions' packed item bitmaps; older segments are never repacked
+    or re-uploaded. A row's logical bitmap is the concatenation of its
+    per-segment words; ``cover_of(h)`` is how many leading segments it
+    has data in (base rows cover every segment; a pushed row covers the
+    segments that existed when it was made, or its ``cover=``, and reads
+    as zeros beyond). :meth:`compact` folds leading segments back into
+    one block.
+
+    The device mirrors (:meth:`device_rows`) are one int32 tensor per
+    segment on ``device``, each kept in sync incrementally: only rows
+    appended or recycled since that segment's last sync cross
+    host→device, and a live, covering word-column row among them is
+    billed ``4 * seg_words`` bytes to ``h2d_bytes``; dead, uncovered and
+    sparse rows are placed as zeros, unbilled. Host-only backends never
+    call it. ``device=None`` means the CUDA card and raises
+    ``RuntimeError`` when there is none; the mirrors live on the CPU only
+    when the caller passes ``"cpu"``.
 
     Device residency (``backing``, one of ``ARENA_BACKINGS``):
-      "auto"   the mirror is created lazily by the first
+      "auto"   a segment's mirror is created lazily by its first
                :meth:`device_rows` call;
-      "jax"    the same mirror, with the base rows uploaded eagerly at
-               load (the reference engine's name for it; here it means
-               an eager upload to ``device``);
+      "jax"    the same mirrors, with the base rows uploaded eagerly at
+               load and at each :meth:`add_segment` (the reference
+               engine's name for it; here an eager upload to
+               ``device``);
       "numpy"  host-only: no mirror, :meth:`device_rows` returns None
                and the kernel backend gathers each batch's rows on the
                host and uploads them per launch (the transfer-bound
@@ -266,17 +280,17 @@ class BitmapArena:
 
     ``tracer`` is None (tracing off) unless an engine attaches one; a
     mirror sync that moves payload then records an ``h2d-sync`` span,
-    and :meth:`count_h2d` an ``h2d`` instant, on the calling lane.
+    :meth:`count_h2d` an ``h2d`` instant and :meth:`compact` a
+    ``compaction`` span, on the calling lane.
 
-    The arena holds one shard and one segment. The row-creating calls
-    take the reference's ``shard=`` and ``cover=`` arguments so the
-    engines call both arenas alike, and accept only the single-segment
-    values (``shard=0``, ``cover`` None or 1).
+    The arena holds one shard: the row-creating calls take the
+    reference's ``shard=`` argument so the engines call both arenas
+    alike, and accept only ``shard=0``.
 
-    Thread-safe: workers push/release concurrently; the mirror is touched
-    only by the dispatcher thread. Growth reallocates the host store, but
-    handed-out row views keep the old buffer alive and live rows are
-    never mutated, so views stay content-correct.
+    Thread-safe: workers push/release concurrently; the mirrors are
+    touched only by the dispatcher thread. Growth reallocates the host
+    stores, but handed-out row views keep the old buffer alive and live
+    rows are never mutated, so views stay content-correct.
     """
 
     GROW = 2                      # capacity doubling factor
@@ -293,10 +307,18 @@ class BitmapArena:
         # observability: None = off (the engines attach a tracer)
         self.tracer = None
         cap = max(capacity, 1)
-        self._n_words = n_words_
-        self._store = np.zeros((cap, n_words_), np.uint32)
+        # per-segment word-column stores sharing one slot space;
+        # segment 0 is the load-time database
+        self._seg_words: List[int] = [n_words_]
+        # owning tenant per segment (None = default); bookkeeping only —
+        # sweeps restrict by explicit segment lists
+        self._seg_tenant: List[object] = [None]
+        self._stores: List[np.ndarray] = [np.zeros((cap, n_words_),
+                                                   np.uint32)]
         self._refs = np.zeros(cap, np.int32)
         self._rep = np.zeros(cap, np.int8)        # REP_* tag per slot
+        # leading segments a row has data in (see class docstring)
+        self._cover = np.zeros(cap, np.int32)
         self.n_rows = 0               # high-water mark (rows ever used)
         self.n_base = 0               # pinned item rows [0, n_base)
         self._free: list = []
@@ -305,12 +327,16 @@ class BitmapArena:
         # retained-bitmap memory bound)
         self.live_extra = 0
         self.peak_live_extra = 0
-        # device mirror: rows [0, _dev_n) have been placed; _stale holds
-        # recycled slots below _dev_n whose mirror content is out of date
-        self._mirror: Optional[torch.Tensor] = None
-        self._dev_n = 0
-        self._stale: set = set()
+        # per-segment mirror state, keyed by segment id so a fresh
+        # segment defaults to "nothing synced": rows [0, _dev_n[g]) have
+        # been placed in mirror g, and _stale[g] holds recycled slots
+        # below it whose mirror content is out of date
+        self._mirrors: Dict[int, torch.Tensor] = {}
+        self._dev_n: Dict[int, int] = {}
+        self._stale: Dict[int, set] = {}
         self.h2d_bytes = 0            # bitmap payload uploaded, total
+        self.compaction_bytes = 0     # host bytes repacked by compact()
+        self.compactions = 0          # compact() calls that merged
         self._sparse: dict = {}                   # handle -> uint32 tids
         self._anchor: dict = {}                   # diffset -> parent handle
         self._ssupport: dict = {}                 # handle -> support
@@ -323,17 +349,160 @@ class BitmapArena:
         self.sparsify_ops = 0         # dense->sparse conversions billed
         self.sparsify_bytes = 0
 
+    # ---------------------------------------------------------- segments --
     @property
     def n_words(self) -> int:
-        return self._n_words
+        """Total logical row width (words) across all segments."""
+        return sum(self._seg_words)
+
+    @property
+    def n_segments(self) -> int:
+        return len(self._seg_words)
+
+    def seg_words(self, seg: int) -> int:
+        return self._seg_words[seg]
+
+    def seg_mirror_words(self, seg: int) -> int:
+        """Row stride of segment ``seg``'s device mirror: its width
+        zero-padded to a power of two. Pad words AND to zero and count
+        nothing, and the kernels read only ``seg_words`` of each row;
+        the pad keeps every row 16-byte aligned for their 128-bit
+        loads."""
+        return pow2(self._seg_words[seg])
 
     @property
     def mirror_words(self) -> int:
-        """Row width of the device mirror: ``n_words`` zero-padded to a
-        power of two. Pad words AND to zero and count nothing, and the
-        kernels read only ``n_words`` of each row; the pad keeps every
-        row 16-byte aligned for their 128-bit loads."""
-        return pow2(self._n_words)
+        """Row stride of segment 0's mirror (the whole row of an arena
+        that was never ingested into)."""
+        return self.seg_mirror_words(0)
+
+    def seg_nbytes(self, seg: int) -> int:
+        """Payload bytes of one segment's pinned base rows — what an
+        ingest must upload to a device mirror (and nothing more)."""
+        return self.n_base * self._seg_words[seg] * 4
+
+    def seg_tenant(self, seg: int):
+        """Owning tenant of one segment (None = default)."""
+        return self._seg_tenant[seg]
+
+    def tenant_segments(self, tenant) -> Tuple[int, ...]:
+        """All segment ids owned by ``tenant``, ascending."""
+        return tuple(g for g, t in enumerate(self._seg_tenant)
+                     if t == tenant)
+
+    def _covered(self, handle: int, seg: int) -> bool:
+        return seg < int(self._cover[handle])
+
+    def n_words_upto(self, upto: int) -> int:
+        """Total row width (words) of the first ``upto`` segments."""
+        return sum(self._seg_words[:upto])
+
+    def seg_tid_range(self, seg: int) -> Tuple[int, int]:
+        """[lo, hi) global tid bounds of one segment — the searchsorted
+        window a segment-restricted sparse sweep filters tids with."""
+        lo = 32 * sum(self._seg_words[:seg])
+        return lo, lo + 32 * self._seg_words[seg]
+
+    def add_segment(self, base_bitmaps: np.ndarray, tenant=None) -> int:
+        """Append a fresh transaction segment: ``base_bitmaps`` is the
+        ``[n_base, W_seg]`` packed item bitmaps of the NEW transactions
+        only. Existing segments are untouched — no repack, no re-upload;
+        under ``backing="jax"`` the new segment's base rows are mirrored
+        at once and their bytes (exactly :meth:`seg_nbytes`) are the
+        whole h2d bill. ``tenant`` tags the segment's owner (None =
+        default). Returns the new segment id."""
+        bm = np.ascontiguousarray(base_bitmaps, dtype=np.uint32)
+        if bm.ndim != 2 or bm.shape[0] != self.n_base:
+            raise ValueError(
+                f"segment bitmaps must be [n_base={self.n_base}, W_seg], "
+                f"got {bm.shape}")
+        with self._lock:
+            w = bm.shape[1]
+            seg = len(self._seg_words)
+            store = np.zeros((self._refs.shape[0], w), np.uint32)
+            store[:self.n_base] = bm
+            self._seg_words.append(w)
+            self._seg_tenant.append(tenant)
+            self._stores.append(store)
+            # base rows extend into the new segment; live non-base rows
+            # keep their coverage and read as zeros there
+            self._cover[:self.n_base] = seg + 1
+        if self.backing == "jax":
+            self.device_rows(segment=seg)      # eager, W_seg only
+        return seg
+
+    def compact(self, upto: int) -> int:
+        """Merge the first ``upto`` segments into one wide word-column
+        store (LSM-style). Handles, refcounts and the free list are
+        untouched; only the segment axis collapses. Segments at index >=
+        ``upto`` shift down by ``upto - 1``, and a row that covered any
+        merged segment now covers the merged block (its store words
+        beyond its old coverage are zero, so reads stay identical). Host
+        repack bytes are billed to ``compaction_bytes``. The mirrors are
+        merged on the device up to the least-synced row count; rows
+        beyond it re-sync (and re-bill) at the next :meth:`device_rows`.
+
+        Must not run concurrently with sweeps that hold segment ids (the
+        streaming engine serializes it with refresh and ingest, and
+        gates it behind in-flight query sweeps). Refuses (returns 0)
+        when the merged segments belong to more than one tenant.
+        Returns the number of segments removed (``upto - 1``)."""
+        tr = self.tracer
+        t0 = time.perf_counter() if tr is not None else 0.0
+        with self._lock:
+            if not 2 <= upto <= len(self._seg_words):
+                return 0
+            if len(set(self._seg_tenant[:upto])) > 1:
+                return 0
+            old_w = self._seg_words[:upto]
+            new_w = sum(old_w)
+            merged = np.concatenate(self._stores[:upto], axis=1)
+            self._stores[:upto] = [np.ascontiguousarray(merged)]
+            self._seg_words[:upto] = [new_w]
+            self._seg_tenant[:upto] = [self._seg_tenant[0]]
+            self.compaction_bytes += self.n_rows * new_w * 4
+            self.compactions += 1
+            # cover remap: >= upto -> minus (upto-1); in (0, upto) -> 1
+            cov = self._cover
+            self._cover = np.where(cov >= upto, cov - (upto - 1),
+                                   np.minimum(cov, 1)).astype(np.int32)
+            self._merge_mirror(upto, old_w)
+            if tr is not None:
+                tr.span("compaction", t0, cat="arena",
+                        args={"merged": upto,
+                              "bytes": self.n_rows * new_w * 4})
+            return upto - 1
+
+    def _merge_mirror(self, upto: int, old_w: Sequence[int]) -> None:
+        # caller holds self._lock
+        def _remap(d: dict, merged) -> dict:
+            out = {} if merged is None else {0: merged}
+            for g in sorted(k for k in d if k >= upto):
+                out[g - (upto - 1)] = d[g]
+            return out
+
+        nmin = min(self._dev_n.get(g, 0) for g in range(upto))
+        stale = set()
+        for g in range(upto):
+            stale |= {h for h in self._stale.get(g, ()) if h < nmin}
+        blocks = [self._mirrors.get(g) for g in range(upto)]
+        if nmin > 0 and all(b is not None for b in blocks):
+            # each block's first seg_words columns only: a mirror row's
+            # pad words past them would land inside the merged row
+            new_w = sum(old_w)
+            buf = torch.zeros((max(64, blocks[0].shape[0]), pow2(new_w)),
+                              dtype=torch.int32, device=self.device)
+            buf[:nmin, :new_w] = torch.cat(
+                [b[:nmin, :w] for b, w in zip(blocks, old_w)], dim=1)
+            self._mirrors = _remap(self._mirrors, buf)
+            self._dev_n = _remap(self._dev_n, nmin)
+            self._stale = _remap(self._stale, stale)
+        else:
+            # nothing fully mirrored yet: the merged block re-syncs from
+            # scratch at its next device_rows
+            self._mirrors = _remap(self._mirrors, None)
+            self._dev_n = _remap(self._dev_n, None)
+            self._stale = _remap(self._stale, None)
 
     # ------------------------------------------------------------- load --
     @classmethod
@@ -345,8 +514,9 @@ class BitmapArena:
         the mirror now."""
         n, w = bitmaps.shape
         arena = cls(w, device, capacity=max(64, 2 * n), backing=backing)
-        arena._store[:n] = bitmaps
+        arena._stores[0][:n] = bitmaps
         arena._refs[:n] = 1
+        arena._cover[:n] = 1
         arena.n_rows = arena.n_base = n
         if backing == "jax":
             arena.device_rows()
@@ -365,18 +535,23 @@ class BitmapArena:
         # caller holds self._lock
         if self._free:
             slot = self._free.pop()
-            if slot < self._dev_n:
-                self._stale.add(slot)     # mirror content now out of date
+            for g, n in self._dev_n.items():
+                if slot < n:              # mirror content now out of date
+                    self._stale.setdefault(g, set()).add(slot)
             return slot
         if self.n_rows == self._refs.shape[0]:
             cap = self.GROW * self._refs.shape[0]
-            store = np.zeros((cap, self._n_words), np.uint32)
-            store[:self.n_rows] = self._store[:self.n_rows]
+            for g, old in enumerate(self._stores):
+                store = np.zeros((cap, self._seg_words[g]), np.uint32)
+                store[:self.n_rows] = old[:self.n_rows]
+                self._stores[g] = store
             refs = np.zeros(cap, np.int32)
             refs[:self.n_rows] = self._refs[:self.n_rows]
             rep = np.zeros(cap, np.int8)
             rep[:self.n_rows] = self._rep[:self.n_rows]
-            self._store, self._refs, self._rep = store, refs, rep
+            cover = np.zeros(cap, np.int32)
+            cover[:self.n_rows] = self._cover[:self.n_rows]
+            self._refs, self._rep, self._cover = refs, rep, cover
         slot = self.n_rows
         self.n_rows += 1
         return slot
@@ -385,21 +560,41 @@ class BitmapArena:
         self.live_extra += 1
         self.peak_live_extra = max(self.peak_live_extra, self.live_extra)
 
-    @staticmethod
-    def _one_segment(shard: int, cover: Optional[int]) -> None:
-        if shard != 0 or cover not in (None, 1):
-            raise ValueError(
-                "this arena holds one shard and one segment; got "
-                f"shard={shard}, cover={cover}")
+    def _check_row(self, shard: int, cover: Optional[int]) -> int:
+        """The coverage a new row gets: ``cover``, or every segment.
+        Raises for another shard than 0 (multi-device arenas are a later
+        slice of the port) or a coverage past the last segment."""
+        if shard != 0:
+            raise ValueError(f"this arena holds one shard; got "
+                             f"shard={shard}")
+        n = len(self._seg_words)
+        if cover is None:
+            return n
+        if not 0 <= cover <= n:
+            raise ValueError(f"cover={cover} outside the arena's "
+                             f"{n} segments")
+        return cover
 
     def push(self, row: np.ndarray, shard: int = 0,
              cover: Optional[int] = None) -> int:
-        """Append (or recycle a slot for) one bitmap row; refcount 1."""
-        self._one_segment(shard, cover)
+        """Append (or recycle a slot for) one bitmap row; refcount 1.
+        Without ``cover``, ``row`` is the full-width concatenation over
+        all segments; with ``cover=c`` it spans only the first ``c``
+        segments (:meth:`n_words_upto`) and the slot is zeroed beyond —
+        a refresh pushes rows at its generation boundary even after an
+        ingest has appended newer segments."""
         with self._lock:
+            cov = self._check_row(shard, cover)
             slot = self._alloc_slot()
-            self._store[slot] = row
+            off = 0
+            for g, w in enumerate(self._seg_words):
+                if g < cov:
+                    self._stores[g][slot] = row[off:off + w]
+                    off += w
+                else:
+                    self._stores[g][slot] = 0
             self._refs[slot] = 1
+            self._cover[slot] = cov
             self._rep[slot] = REP_BITMAP
             self._bump_live()
             return slot
@@ -408,15 +603,22 @@ class BitmapArena:
                     shard: int = 0) -> int:
         """``row(prefix) ∧ row(ext)`` written in place into a fresh slot
         — the depth-first parent→child handoff, with no floating
-        temporary. The device mirror picks the row up at its next
+        temporary. The row covers the segments both parents cover (and
+        is zeroed beyond). The device mirrors pick it up at their next
         sync, billed like any pushed row."""
-        self._one_segment(shard, None)
         with self._lock:
+            self._check_row(shard, None)
             slot = self._alloc_slot()
-            store = self._store
-            np.bitwise_and(store[prefix_handle], store[ext_handle],
-                           out=store[slot])
+            cov = min(int(self._cover[prefix_handle]),
+                      int(self._cover[ext_handle]))
+            for g, store in enumerate(self._stores):
+                if g < cov:
+                    np.bitwise_and(store[prefix_handle], store[ext_handle],
+                                   out=store[slot])
+                else:
+                    store[slot] = 0
             self._refs[slot] = 1
+            self._cover[slot] = cov
             self._rep[slot] = REP_BITMAP
             self._bump_live()
             return slot
@@ -425,11 +627,12 @@ class BitmapArena:
     def _push_sparse(self, rep: int, tids: np.ndarray, support: int,
                      shard: int, cover: Optional[int],
                      anchor: Optional[int] = None) -> int:
-        self._one_segment(shard, cover)
         t = np.ascontiguousarray(tids, dtype=np.uint32)
         with self._lock:
+            cov = self._check_row(shard, cover)
             slot = self._alloc_slot()
             self._refs[slot] = 1
+            self._cover[slot] = cov
             self._rep[slot] = rep
             self._sparse[slot] = t
             self._ssupport[slot] = int(support)
@@ -460,7 +663,8 @@ class BitmapArena:
         return self._push_sparse(REP_DIFFSET, diff, support, shard, cover,
                                  anchor=anchor)
 
-    def sparsify_push(self, row: np.ndarray) -> int:
+    def sparsify_push(self, row: np.ndarray, shard: int = 0,
+                      cover: Optional[int] = None) -> int:
         """Scan a dense word-row into a tid-list row (billed sparsify
         conversion) — the prefix cache's path when the density model
         says a freshly built intersection should live sparse."""
@@ -468,7 +672,7 @@ class BitmapArena:
         with self._lock:
             self.sparsify_ops += 1
             self.sparsify_bytes += row.nbytes
-        return self.push_tids(t)
+        return self.push_tids(t, shard=shard, cover=cover)
 
     def rep_of(self, handle: int) -> int:
         """REP_BITMAP / REP_TIDLIST / REP_DIFFSET tag of a row."""
@@ -478,8 +682,8 @@ class BitmapArena:
         return REP_NAMES[self.rep_of(handle)]
 
     def cover_of(self, handle: int) -> int:
-        """Segments a row covers: always the one segment here."""
-        return 1
+        """Leading segments a row has data in."""
+        return int(self._cover[handle])
 
     def tids_of(self, handle: int) -> np.ndarray:
         """Raw sparse payload of a tid-list or diffset row (for a diffset
@@ -507,34 +711,43 @@ class BitmapArena:
         if rep == REP_DIFFSET:
             parent = self.resolve_tids(self._anchor[handle])
             return sorted_difference(parent, self._sparse[handle])
-        tids = bitmap_to_tids(self._store[handle])
+        tids = bitmap_to_tids(self.row(handle))
         with self._lock:
             self.sparsify_ops += 1
-            self.sparsify_bytes += self._n_words * 4
+            self.sparsify_bytes += self.n_words * 4
         return tids
 
     def gather_bits_rows(self, tids: np.ndarray,
                          handles: Sequence[int]) -> np.ndarray:
         """[len(handles), len(tids)] bool: bit test of each handle's
-        dense row at each tid, read from the host store — the class
-        task's batched child carve, one ``np.ix_`` gather for every
-        row at once."""
+        dense row at each tid, read from the host stores — the class
+        task's batched child carve, one ``np.ix_`` gather per segment
+        for every row at once."""
         out = np.zeros((len(handles), len(tids)), bool)
-        if not len(tids) or not len(handles) or not self._n_words:
+        if not len(tids) or not len(handles):
             return out
-        t = np.asarray(tids).astype(np.int64)
-        w = self._store[np.ix_([int(h) for h in handles], t >> 5)]
-        out[:] = (w >> (t & 31).astype(np.uint32)[None, :]) & np.uint32(1)
+        hs = [int(h) for h in handles]
+        for g in range(self.n_segments):
+            if not self._seg_words[g]:
+                continue
+            lo, hi = self.seg_tid_range(g)
+            i0, i1 = np.searchsorted(tids, [lo, hi])
+            if i0 == i1:
+                continue
+            t = tids[i0:i1].astype(np.int64) - lo
+            w = self.seg_view(g)[np.ix_(hs, t >> 5)]
+            out[:, i0:i1] = (w >> (t & 31).astype(np.uint32)[None, :]
+                             ) & np.uint32(1)
         return out
 
     def densify(self, handle: int) -> np.ndarray:
-        """Dense word-column of ANY row; for sparse rows this is a billed
-        densify conversion."""
+        """Full-width dense word-column of ANY row; for sparse rows this
+        is a billed densify conversion."""
         rep = int(self._rep[handle])
         if rep == REP_BITMAP:
-            return self._store[handle]
+            return self.row(handle)
         if rep == REP_TIDLIST:
-            out = tids_to_bitmap(self._sparse[handle], self._n_words)
+            out = tids_to_bitmap(self._sparse[handle], self.n_words)
         else:
             out = self.densify(self._anchor[handle]).copy()
             d = self._sparse[handle]
@@ -544,7 +757,7 @@ class BitmapArena:
                     ~(np.uint32(1) << (d & np.uint32(31))))
         with self._lock:
             self.densify_ops += 1
-            self.densify_bytes += self._n_words * 4
+            self.densify_bytes += self.n_words * 4
         return out
 
     def retain(self, handle: int) -> None:
@@ -584,92 +797,137 @@ class BitmapArena:
 
     # ------------------------------------------------------------ access --
     def row(self, handle: int) -> np.ndarray:
-        """[n_words] view of one live row; sparse rows densify (billed)."""
+        """[n_words] view of one live row. Zero-copy for a one-segment
+        arena; for a segmented arena a concatenated copy, zero past the
+        row's coverage. Sparse rows densify (billed)."""
         if self._rep[handle] != REP_BITMAP:
             return self.densify(handle)
-        return self._store[handle]
+        return self.row_upto(handle, len(self._stores))
+
+    def row_upto(self, handle: int, upto: int) -> np.ndarray:
+        """Row words over the first ``upto`` segments only, zero past
+        the row's coverage — the boundary-consistent read of a refresh
+        that overlaps an ingest (segments appended after the boundary
+        are invisible, so two reads of one handle agree in width)."""
+        if self._rep[handle] != REP_BITMAP:
+            return self.densify(handle)[:self.n_words_upto(upto)]
+        if upto == 1:
+            return self._stores[0][handle]
+        cov = int(self._cover[handle])
+        return np.concatenate(
+            [store[handle] if g < cov
+             else np.zeros(self._seg_words[g], np.uint32)
+             for g, store in enumerate(self._stores[:upto])])
+
+    def seg_row(self, seg: int, handle: int) -> np.ndarray:
+        """Zero-copy [W_seg] view of one row's words in one segment."""
+        return self._stores[seg][handle]
+
+    def seg_view(self, seg: int) -> np.ndarray:
+        """Zero-copy [n_rows, W_seg] view of one segment's store."""
+        return self._stores[seg][:self.n_rows]
 
     def rows_view(self) -> np.ndarray:
-        """Zero-copy [n_rows, n_words] view of the store."""
-        return self._store[:self.n_rows]
+        """[n_rows, n_words] view of the whole store: zero-copy for a
+        one-segment arena, a concatenated copy otherwise."""
+        if len(self._stores) == 1:
+            return self._stores[0][:self.n_rows]
+        return np.concatenate([s[:self.n_rows] for s in self._stores],
+                              axis=1)
 
-    def gather(self, handles: Sequence[int]) -> np.ndarray:
-        """[len(handles), n_words] rows: a zero-copy slice when the
-        handles are consecutive, a fancy-index copy otherwise."""
+    def seg_gather(self, seg: int, handles: Sequence[int]) -> np.ndarray:
+        """One segment's rows for ``handles``: a zero-copy slice when
+        the handles are consecutive, a fancy-index copy otherwise."""
+        store = self._stores[seg]
         h0 = handles[0]
         n = len(handles)
         if all(handles[i] == h0 + i for i in range(1, n)):
-            return self._store[h0:h0 + n]
-        return self._store[list(handles)]
+            return store[h0:h0 + n]
+        return store[list(handles)]
+
+    def gather(self, handles: Sequence[int]) -> np.ndarray:
+        """Full-width rows for ``handles`` (see :meth:`seg_gather`)."""
+        if len(self._stores) == 1:
+            return self.seg_gather(0, handles)
+        return np.concatenate([self.seg_gather(g, handles)
+                               for g in range(len(self._stores))], axis=1)
 
     @property
     def live_bytes_extra(self) -> int:
         """Retained non-base payload: dense rows at full row width,
         sparse rows at their actual tid-array size."""
-        return ((self.live_extra - self.sparse_live) * self._n_words * 4
+        return ((self.live_extra - self.sparse_live) * self.n_words * 4
                 + self.sparse_bytes_live)
 
     @property
     def peak_bytes_extra(self) -> int:
-        return self.peak_live_extra * self._n_words * 4
+        return self.peak_live_extra * self.n_words * 4
 
     @property
     def nbytes_base(self) -> int:
-        return self.n_base * self._n_words * 4
+        return self.n_base * self.n_words * 4
 
     # ------------------------------------------------------------ device --
     @property
     def device_enabled(self) -> bool:
         return self.backing != "numpy"
 
-    def device_rows(self) -> Optional[torch.Tensor]:
-        """The device mirror ``[n_rows, mirror_words]`` int32, synced
-        incrementally (only the dispatcher thread calls this); None for
-        a host-only ("numpy") backing.
+    def device_rows(self, segment: int = 0) -> Optional[torch.Tensor]:
+        """Segment ``segment``'s device mirror ``[n_rows,
+        seg_mirror_words]`` int32, synced incrementally (only the
+        dispatcher thread calls this); None for a host-only ("numpy")
+        backing.
 
-        Rows appended since the last sync and recycled slots are written;
-        a live word-column row among them is billed ``4 * n_words`` bytes
-        to ``h2d_bytes``, and a dead or sparse slot is written as zeros,
-        unbilled. The mirror is ONE capacity-doubling buffer updated in
+        Rows new to this mirror and its recycled slots are written; a
+        live word-column row covering the segment is billed ``4 *
+        seg_words`` bytes to ``h2d_bytes``, and a dead, uncovered or
+        sparse slot is written as zeros, unbilled. So an ingest that
+        appended segment g uploads ``seg_nbytes(g)`` and never the older
+        segments. Each mirror is ONE capacity-doubling buffer updated in
         place with ``index_copy_``: a sync moves only the changed rows,
         where a functional update would copy the whole mirror."""
         if not self.device_enabled:
             return None
         tr = self.tracer
         t_sync = time.perf_counter() if tr is not None else 0.0
+        w = self._seg_words[segment]
         with self._lock:
             n = self.n_rows
-            todo = sorted(self._stale.union(range(self._dev_n, n)))
+            stale = self._stale.setdefault(segment, set())
+            todo = sorted(stale.union(
+                range(self._dev_n.get(segment, 0), n)))
             billed = [h for h in todo
                       if (h < self.n_base or self._refs[h] > 0)
-                      and self._rep[h] == REP_BITMAP]
-            payload = np.zeros((len(todo), self._n_words), np.uint32)
+                      and self._rep[h] == REP_BITMAP
+                      and self._covered(h, segment)]
+            payload = np.zeros((len(todo), w), np.uint32)
             if billed:
                 keep = np.isin(todo, billed)
-                payload[keep] = self._store[billed]
-            self._stale.clear()
-            self._dev_n = n
-        mirror = self._mirror
+                payload[keep] = self._stores[segment][billed]
+            stale.clear()
+            self._dev_n[segment] = n
+        mirror = self._mirrors.get(segment)
         if mirror is None or mirror.shape[0] < n:
             cap = max(64, n, 0 if mirror is None else 2 * mirror.shape[0])
-            grown = torch.zeros((cap, self.mirror_words), dtype=torch.int32,
+            grown = torch.zeros((cap, pow2(w)), dtype=torch.int32,
                                 device=self.device)
             if mirror is not None:
                 grown[:mirror.shape[0]].copy_(mirror)
-            mirror = self._mirror = grown
-        if todo:
+            mirror = self._mirrors[segment] = grown
+        if todo and w:
             idx = torch.as_tensor(todo, dtype=torch.int64).to(self.device)
-            mirror[:, :self._n_words].index_copy_(
-                0, idx, to_device_words(payload, self.device))
-        if billed:
-            nbytes = len(billed) * self._n_words * 4
+            mirror[:, :w].index_copy_(0, idx,
+                                      to_device_words(payload, self.device))
+        if billed and w:
+            nbytes = len(billed) * w * 4
             with self._lock:
                 self.h2d_bytes += nbytes
             if tr is not None:
                 # only syncs that moved payload get a span: the
                 # steady-state no-op sync stays invisible
                 tr.span("h2d-sync", t_sync, cat="arena",
-                        args={"shard": 0, "segment": 0, "bytes": nbytes})
+                        args={"shard": 0, "segment": segment,
+                              "bytes": nbytes})
         return mirror[:n]
 
     def count_h2d(self, nbytes: int) -> None:
@@ -685,4 +943,4 @@ class BitmapArena:
     def __repr__(self) -> str:
         return (f"<BitmapArena rows={self.n_rows} base={self.n_base} "
                 f"live_extra={self.live_extra} backing={self.backing} "
-                f"device={self.device}>")
+                f"segments={self.n_segments} device={self.device}>")

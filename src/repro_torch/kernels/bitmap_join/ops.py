@@ -5,7 +5,8 @@ bitmap_join_many.cu``, ``csrc/bitmap_join.cu``) or raises; on a CPU
 tensor it runs the plain version in ``ref.py``.
 
 ``bitmap_join_many_rows`` is the indexed entry the kernel backend calls:
-it takes row stores (the arena's device mirror) and int32 row indices.
+it takes row stores (the arena's device mirror of one segment) and int32
+row indices, one prefix row or a tuple of them per request.
 ``bitmap_join_many`` keeps the reference's gathered form ``(prefixes,
 exts, mask)`` and launches the same kernel with identity indices.
 ``launches`` counts ``bitmap_join_many`` kernel launches through either
@@ -25,7 +26,7 @@ from repro_torch.kernels.bitmap_join.ref import (bitmap_join_many_ref,
 
 _MANY = _build.Kernel(
     "bitmap_join_many",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
     + [ctypes.c_void_p])
 _SINGLE = _build.Kernel(
     "bitmap_join", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
@@ -43,8 +44,9 @@ def _launch_rows(prefix_rows, pidx, ext_rows, eidx, n_words):
         raise ValueError("bitmap_join_many takes contiguous index tensors")
     _build.check_grid(b, e, ROWS_PER_BLOCK)
     out = torch.empty((b, e), dtype=torch.int32, device=eidx.device)
+    tuple_len = pidx.shape[1] if pidx.dim() == 2 else 1
     _MANY(prefix_rows.data_ptr(), pidx.data_ptr(), ext_rows.data_ptr(),
-          eidx.data_ptr(), out.data_ptr(), b, e, n_words,
+          eidx.data_ptr(), out.data_ptr(), b, e, n_words, tuple_len,
           prefix_rows.stride(0), ext_rows.stride(0),
           torch.cuda.current_stream(eidx.device).cuda_stream)
     launches += 1
@@ -55,17 +57,26 @@ def bitmap_join_many_rows(prefix_rows: torch.Tensor, pidx: torch.Tensor,
                           ext_rows: torch.Tensor, eidx: torch.Tensor,
                           n_words: int) -> torch.Tensor:
     """Indexed batched join: ``counts[b, e] = Σ_{w < n_words}
-    popcount(prefix_rows[pidx[b], w] & ext_rows[eidx[b, e], w])``.
+    popcount(P_b[w] & ext_rows[eidx[b, e], w])``, where ``P_b`` is
+    ``prefix_rows[pidx[b]]`` for pidx [B], or for pidx [B, L] the AND of
+    the tuple ``prefix_rows[pidx[b, j]]``, j = 0, 1, ... up to the first
+    -1 past j = 0.
 
     prefix_rows and ext_rows are int32 row stores [rows, width] (on the
-    mining path both are the arena's device mirror), pidx [B] and eidx
-    [B, E] int32 row indices -> [B, E] int32. An index of -1 marks a pad
+    mining path both are the arena's device mirror of one segment), pidx
+    [B] or [B, L] and eidx [B, E] int32 row indices -> [B, E] int32. An
+    index of -1 at ``pidx[b]`` (``pidx[b, 0]``) or in eidx marks a pad
     request or lane, reads nothing and counts 0; every other index must
     name a row of its store. Only ``n_words`` words of a row are read.
     An empty batch or ``n_words == 0`` launches nothing."""
     _build.check_store("prefix_rows", prefix_rows, n_words)
     _build.check_store("ext_rows", ext_rows, n_words)
-    _build.check_index("pidx", pidx, 1)
+    if pidx.dim() == 2:
+        _build.check_index("pidx", pidx, 2)
+        if pidx.shape[1] == 0:
+            raise ValueError("pidx [B, L] needs L >= 1")
+    else:
+        _build.check_index("pidx", pidx, 1)
     _build.check_index("eidx", eidx, 2)
     if eidx.shape[0] != pidx.shape[0]:
         raise ValueError(f"pidx {tuple(pidx.shape)} and eidx "

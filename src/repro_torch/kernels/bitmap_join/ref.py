@@ -44,11 +44,18 @@ def bitmap_join_many_rows_ref(prefix_rows: torch.Tensor, pidx: torch.Tensor,
                               ext_rows: torch.Tensor, eidx: torch.Tensor,
                               n_words: int) -> torch.Tensor:
     """The indexed form: prefix_rows and ext_rows are int32 row stores,
-    pidx [B] and eidx [B, E] int32 row indices -> counts [B, E] int32,
-    ``counts[b, e] = Σ_{w < n_words} popcount(prefix_rows[pidx[b], w]
-    & ext_rows[eidx[b, e], w])``. An index of -1 (a pad request or lane)
-    counts 0."""
-    p = prefix_rows[pidx.clamp(min=0).long(), :n_words]
+    pidx [B] or [B, L] and eidx [B, E] int32 row indices -> counts [B, E]
+    int32, ``counts[b, e] = Σ_{w < n_words} popcount(P_b[w] &
+    ext_rows[eidx[b, e], w])``. ``P_b`` is ``prefix_rows[pidx[b]]``, or
+    for pidx [B, L] the AND of ``prefix_rows[pidx[b, j]]`` over the tuple,
+    which ends at the first -1 past j = 0. An index of -1 at ``pidx[b,
+    0]`` or in eidx (a pad request or lane) counts 0."""
+    tuples = pidx if pidx.dim() == 2 else pidx[:, None]
+    rows = prefix_rows[tuples.clamp(min=0).long(), :n_words]   # [B, L, W]
+    in_tuple = torch.cumprod((tuples >= 0).int(), dim=1).bool()
+    p = rows[:, 0]
+    for j in range(1, tuples.shape[1]):
+        p = p & torch.where(in_tuple[:, j, None], rows[:, j], -1)
     x = ext_rows[eidx.clamp(min=0).long(), :n_words]
-    live = (pidx >= 0)[:, None] & (eidx >= 0)
+    live = (tuples[:, 0] >= 0)[:, None] & (eidx >= 0)
     return torch.where(live, bitmap_join_many_ref(p, x), 0)

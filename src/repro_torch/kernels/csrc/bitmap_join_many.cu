@@ -4,14 +4,19 @@
 // Replaces the TPU kernel bitmap_join_many_kernel
 // (src/repro/kernels/bitmap_join/kernel.py, body _many_kernel).
 //
-//   counts[b, e] = sum_{w < n_words} popcount(prefix_rows[pidx[b]][w]
+//   counts[b, e] = sum_{w < n_words} popcount(P_b[w]
 //                                             & ext_rows[eidx[b, e]][w])
+//   P_b = AND_{j < L_b} prefix_rows[pidx[b, j]]
 //
 // prefix_rows and ext_rows are int32 row stores (rows prefix_stride and
 // ext_stride words apart; on the mining path both are the arena's device
-// mirror), read as uint32; pidx [B] and eidx [B, E] are int32 row
-// indices, counts [B, E] int32. An index of -1 marks a pad request or a
-// pad lane: it reads nothing and its count is 0. Only the first n_words
+// mirror of one transaction segment), read as uint32; pidx [B, L] and
+// eidx [B, E] are int32 row indices, counts [B, E] int32. Request b's
+// prefix is the AND of its tuple pidx[b, 0..L_b), which ends at the
+// first -1 past j = 0 (the streaming engine's delta and query sweeps
+// name a tuple of base-item rows; every other sweep has L = 1, one row).
+// An index of -1 at pidx[b, 0] or in eidx marks a pad request or a pad
+// lane: it reads nothing and its count is 0. Only the first n_words
 // words of a row are read, so a mirror's zero tail beyond the data's
 // width costs nothing.
 //
@@ -28,7 +33,9 @@
 //     integer atomicAdds into counts, which the C entry zeroes with
 //     cudaMemsetAsync on the same stream first (exact and order-free);
 //   - keeps a block's prefix chunk in shared memory for its 8 rows, one
-//     warp per row;
+//     warp per row; a tuple prefix is ANDed into that chunk as it is
+//     loaded (L - 1 more coalesced row reads per block), so no prefix
+//     intersection is built in device memory before the launch;
 //   - reads each row's 16-byte-aligned body as uint4 and its head and
 //     tail words one by one, so rows off the 16-byte grid (a store whose
 //     stride is odd, such as 3,125) still stream with 128-bit loads;
@@ -62,11 +69,12 @@ bitmap_join_many_kernel(const uint32_t* __restrict__ prefix_rows,
                         const uint32_t* __restrict__ ext_rows,
                         const int32_t* __restrict__ eidx,
                         int32_t* __restrict__ out, int E, int n_words,
-                        long long prefix_stride, long long ext_stride,
-                        int chunk_words) {
+                        int L, long long prefix_stride,
+                        long long ext_stride, int chunk_words) {
   extern __shared__ __align__(16) uint32_t s_prefix[];
   const int b = blockIdx.z;
-  const int p = pidx[b];
+  const int32_t* tuple = pidx + (size_t)b * L;
+  const int p = tuple[0];
   if (p < 0) return;                      // pad request: counts stay 0
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -76,7 +84,15 @@ bitmap_join_many_kernel(const uint32_t* __restrict__ prefix_rows,
   const int w0 = blockIdx.x * chunk_words;
   const int n = min(chunk_words, n_words - w0);
   const uint32_t* prow = prefix_rows + (size_t)p * prefix_stride + w0;
-  for (int i = threadIdx.x; i < n; i += kThreads) s_prefix[i] = prow[i];
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    uint32_t v = prow[i];
+    for (int j = 1; j < L; ++j) {         // L = 1: one row, no loop
+      const int q = tuple[j];
+      if (q < 0) break;                   // the tuple ends
+      v &= prefix_rows[(size_t)q * prefix_stride + w0 + i];
+    }
+    s_prefix[i] = v;
+  }
   __syncthreads();
   if (row < 0) return;
   const uint32_t* ec = ext_rows + (size_t)row * ext_stride + w0;
@@ -118,12 +134,12 @@ bitmap_join_many_kernel(const uint32_t* __restrict__ prefix_rows,
 
 // Zeroes counts and launches on `stream`; returns the first CUDA error
 // (0 = launched). The caller checks shapes and indices: B in [1, 65535],
-// E in [1, 8 * 65535], 1 <= n_words <= each store's row width, every
-// index -1 or a row of its store, int32 words 4-byte aligned.
+// E in [1, 8 * 65535], L >= 1, 1 <= n_words <= each store's row width,
+// every index -1 or a row of its store, int32 words 4-byte aligned.
 extern "C" int bitmap_join_many(const void* prefix_rows, const void* pidx,
                                 const void* ext_rows, const void* eidx,
                                 void* out, int B, int E, int n_words,
-                                long long prefix_stride,
+                                int L, long long prefix_stride,
                                 long long ext_stride, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
@@ -154,7 +170,7 @@ extern "C" int bitmap_join_many(const void* prefix_rows, const void* pidx,
       static_cast<const int32_t*>(pidx),
       static_cast<const uint32_t*>(ext_rows),
       static_cast<const int32_t*>(eidx), static_cast<int32_t*>(out), E,
-      n_words, prefix_stride, ext_stride, chunk_words);
+      n_words, L, prefix_stride, ext_stride, chunk_words);
   return static_cast<int>(cudaGetLastError());
 }
 

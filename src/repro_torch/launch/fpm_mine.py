@@ -1,11 +1,18 @@
 """FPM mining launcher of the PyTorch/CUDA port — the paper's experiment
 end to end: a host ``mine_serial`` reference, then one mine per
 scheduling policy through ``repro_torch.mine``, each checked equal to
-the reference.
+the reference. With ``--stream N`` it replays the dataset's tail as N
+ingest+refresh rounds through a ``StreamingMiner`` instead (the final
+generation checked equal to the reference), and ``--serve M`` then
+serves M queries of each kind through a ``PatternServer``.
 
 Example (clustered against Cilk-style scheduling on the card):
     PYTHONPATH=src python -m repro_torch.launch.fpm_mine --dataset t10i4 \
         --workers 8 --policies cilk clustered --max-k 8 --trace-summary
+
+Example (streaming refresh and query serving on the card):
+    PYTHONPATH=src python -m repro_torch.launch.fpm_mine --dataset t10i4 \
+        --stream 2 --serve 64 --max-k 8
 
 The mines run on the CUDA card unless ``--device cpu`` is given; without
 a card and without ``--device`` the launcher raises ``RuntimeError``
@@ -14,11 +21,15 @@ before it builds any data.
 from __future__ import annotations
 
 import argparse
+import itertools
 import time
 from typing import Optional, Sequence
 
+import numpy as np
+
 from repro_torch.core.buckets import REPRESENTATIONS
 from repro_torch.core.fpm import GRANULARITIES, mine, mine_serial
+from repro_torch.core.streaming import PatternServer, StreamingMiner
 from repro_torch.core.tidlist import (ARENA_BACKINGS, pack_database,
                                       resolve_device)
 from repro_torch.data.transactions import PROFILES, load
@@ -26,8 +37,7 @@ from repro_torch.obs import Tracer, summary_table, write_chrome_trace
 
 # flags of the reference launcher whose modes later slices of the port
 # bring, and the slice that brings each
-LATER_SLICES = {"mesh": "multi-device", "hosts": "cluster",
-                "stream": "streaming", "serve": "streaming"}
+LATER_SLICES = {"mesh": "multi-device", "hosts": "cluster"}
 
 
 def _finish_trace(args, tracer, wall_s: float) -> None:
@@ -93,11 +103,107 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="print the per-worker time-in-state table "
                          "(sweep/eval/idle/steal) after the run; "
                          "implies tracing even without --trace")
+    ap.add_argument("--stream", type=int, default=0, metavar="N",
+                    help="streaming mode: hold back the tail of the "
+                         "dataset and replay it as N ingest+refresh "
+                         "rounds through a StreamingMiner (prints "
+                         "per-round border/reuse stats; the final "
+                         "generation is verified against the serial "
+                         "batch miner)")
+    ap.add_argument("--stream-frac", type=float, default=0.1,
+                    help="fraction of the dataset replayed as the "
+                         "ingest stream (with --stream)")
+    ap.add_argument("--serve", type=int, default=0, metavar="N",
+                    help="after the stream replay, serve N queries of "
+                         "each kind (known-hit, batched unknown-itemset "
+                         "sweep, top-k) through the PatternServer and "
+                         "print per-kind p50/p95/p99 (with --stream)")
     for flag, slice_ in LATER_SLICES.items():
         ap.add_argument(f"--{flag}", type=int, default=0, metavar="N",
                         help=f"the reference launcher's {flag} mode; the "
                              f"port's {slice_} slice brings it")
     return ap.parse_args(argv)
+
+
+def _stream(args, db, n_items, ms, ref, device, tracer) -> None:
+    """``--stream``: mine the head of the dataset, replay its tail as
+    ``args.stream`` ingest+refresh rounds, check the final generation
+    against ``mine_serial``, then (``--serve``) time the queries."""
+    n_stream = max(args.stream, int(args.stream_frac * len(db)))
+    init, tail = db[:-n_stream], db[-n_stream:]
+    per = max(1, len(tail) // args.stream)
+    sm = StreamingMiner(n_items, ms, initial_db=init, device=device,
+                        policy=args.policies[0], n_workers=args.workers,
+                        max_k=args.max_k, granularity=args.granularity,
+                        backend=args.backend, arena=args.arena,
+                        max_batch=args.max_batch, flush_us=args.flush_us,
+                        representation=args.representation, tracer=tracer)
+    try:
+        t_stream0 = time.perf_counter()
+        rep = sm.refresh()
+        print(f"stream gen1: |D|={rep.n_transactions} "
+              f"frequent={rep.frequent} wall={rep.wall_s:.2f}s "
+              f"rows={rep.rows_touched}")
+        for r in range(args.stream):
+            batch = (tail[r * per:] if r == args.stream - 1
+                     else tail[r * per:(r + 1) * per])
+            if not batch:
+                break
+            ing = sm.ingest(batch)
+            rep = sm.refresh()
+            print(f"stream gen{rep.generation}: +{ing.n_transactions}tx "
+                  f"(seg {ing.segment}, {ing.payload_bytes}B, "
+                  f"h2d={ing.h2d_bytes}B) wall={rep.wall_s:.2f}s "
+                  f"rows={rep.rows_touched} reused={rep.reused} "
+                  f"delta={rep.swept_delta} full={rep.swept_full} "
+                  f"born={rep.born} died={rep.died} "
+                  f"compacted={rep.compacted_segments}"
+                  f"/{rep.compaction_bytes}B", flush=True)
+        if dict(sm.snapshot.supports) != ref:
+            raise SystemExit("stream result differs from mine_serial")
+        srv = PatternServer(sm)
+        top = srv.top_k((), 5)
+        print(f"stream final == serial; top-5: {top}")
+        if args.serve:
+            _serve(args, srv, sm, top, n_items)
+        _finish_trace(args, tracer, time.perf_counter() - t_stream0)
+    finally:
+        sm.close()
+
+
+def _serve(args, srv, sm, top, n_items: int) -> None:
+    """``--serve``: ``args.serve`` known hits and top-k queries, then
+    ``args.serve`` batches of 8 never-counted itemsets (size max_k + 1),
+    each kind's per-query latency percentiles."""
+    hot = [x for x, _ in top] or [(0,)]
+    fresh = itertools.chain.from_iterable(
+        itertools.combinations(range(n_items), k)
+        for k in range(args.max_k + 1, n_items + 1))
+    lat = {"hit": [], "sweep": [], "top_k": []}
+    for i in range(args.serve):
+        x = hot[i % len(hot)]
+        t0 = time.perf_counter_ns()
+        srv.support(x)
+        lat["hit"].append((time.perf_counter_ns() - t0) / 1e3)
+        t0 = time.perf_counter_ns()
+        srv.top_k(x[:1], 5)
+        lat["top_k"].append((time.perf_counter_ns() - t0) / 1e3)
+    batch = 8
+    for _ in range(args.serve):
+        xs = list(itertools.islice(fresh, batch))
+        t0 = time.perf_counter_ns()
+        srv.support_many(xs)
+        lat["sweep"].append((time.perf_counter_ns() - t0) / 1e3 / len(xs))
+    for kind, us in lat.items():
+        a = np.asarray(us)
+        print(f"serve {kind:6s}: n={len(us):4d} "
+              f"p50={np.percentile(a, 50):8.1f}us "
+              f"p95={np.percentile(a, 95):8.1f}us "
+              f"p99={np.percentile(a, 99):8.1f}us")
+    print(f"serve stats: {srv.merged_stats()} "
+          f"query_sweeps={sm.query_sweeps} "
+          f"query_sweep_bytes={sm.query_sweep_bytes}")
+    print(f"serve recorder: {srv.latency_percentiles()}")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -125,6 +231,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     tracer = (Tracer() if (args.trace or args.trace_summary)
               else None)
+    if args.stream:
+        _stream(args, db, n_items, ms, ref, device, tracer)
+        return
     traced_wall = 0.0
     for policy in args.policies:
         res, met = mine(bitmaps, ms, device=device, policy=policy,

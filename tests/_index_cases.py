@@ -77,3 +77,33 @@ def gathered_tids(tids, lens):
     """``tids`` with the slots at or past each request's length as -1."""
     past = np.arange(tids.shape[1])[None, :] >= lens[:, None]
     return np.where(past, -1, tids).astype(np.int32)
+
+
+def tuple_case(rng, n_rows, stride, b, e, tuple_len):
+    """(store, pidx [b, tuple_len], eidx [b, e]): prefix tuples of mixed
+    lengths in one batch — request 0 full length, request 1 (b > 2) one
+    row, the others a random length — with -1 past each tuple's end, and
+    the last request (b > 1) a pad request (-1 at j = 0)."""
+    pidx = rng.integers(0, n_rows, size=(b, tuple_len)).astype(np.int32)
+    for i in range(1, b):
+        n = 1 if i == 1 and b > 2 else int(rng.integers(1, tuple_len + 1))
+        pidx[i, n:] = -1
+    if b > 1:
+        pidx[-1] = -1
+    return store(rng, n_rows, stride), pidx, ext_index(rng, n_rows, b, e)
+
+
+def gathered_tuple_prefixes(m, pidx, n_words):
+    """[b, n_words]: the AND of each request's tuple rows (up to its
+    first -1), zero for a pad request."""
+    out = np.zeros((pidx.shape[0], n_words), np.uint32)
+    for i, row in enumerate(pidx):
+        if row[0] < 0:
+            continue
+        p = m[row[0], :n_words].copy()
+        for h in row[1:]:
+            if h < 0:
+                break
+            p &= m[h, :n_words]
+        out[i] = p
+    return out

@@ -160,15 +160,24 @@ def test_arena_without_device_raises_when_no_cuda(monkeypatch):
 
 
 def test_arena_holds_one_shard_and_one_segment():
+    """A loaded arena holds one segment until an ingest adds one; it
+    holds one shard always (multi-device arenas are a later slice), and
+    a row cannot cover segments the arena does not have."""
     arena = BitmapArena.from_bitmaps(words((3, 2)), device="cpu")
+    assert arena.n_segments == 1
     h = arena.push(words(2), shard=0, cover=1)
     assert arena.cover_of(h) == arena.cover_of(0) == 1
-    with pytest.raises(ValueError, match="one shard and one segment"):
+    with pytest.raises(ValueError, match="one shard"):
         arena.push(words(2), shard=1)
-    with pytest.raises(ValueError, match="one shard and one segment"):
+    with pytest.raises(ValueError, match="outside the arena's 1 segments"):
         arena.push_tids(np.array([1, 5], np.uint32), cover=2)
-    with pytest.raises(ValueError, match="one shard and one segment"):
+    with pytest.raises(ValueError, match="one shard"):
         arena.materialize(0, 1, shard=1)
+    arena.add_segment(words((3, 1)))
+    assert arena.n_segments == 2 and arena.cover_of(0) == 2
+    assert arena.cover_of(h) == 1
+    assert arena.cover_of(arena.push_tids(np.array([1], np.uint32),
+                                          cover=2)) == 2
 
 
 # ------------------------------------------------------- class handoffs
@@ -422,3 +431,121 @@ def test_kernel_backend_takes_the_gathered_forms_without_a_mirror(
     else:
         assert min(indexed) > 0 and gathered == (0, 0)
     assert sum(gathered) + sum(indexed) >= met.flushes
+
+
+# ------------------------------------------------------------- segments
+def mirrored_rows(port, seg):
+    """Segment ``seg``'s mirror as uint32 rows at the segment's width."""
+    return from_device_words(
+        port.device_rows(seg)[:, :port.seg_words(seg)].contiguous())
+
+
+def test_segment_helpers_equal_reference():
+    """add_segment, the seg_* accessors, coverage, row_upto, gather,
+    rows_view and gather_bits_rows agree with the reference on a
+    three-segment arena with rows pushed at every stage."""
+    rng = np.random.default_rng(5)
+    segs = [words((6, w), rng) for w in (4, 0, 3)]
+    port = BitmapArena.from_bitmaps(segs[0], device="cpu")
+    ref = rtl.BitmapArena.from_bitmaps(segs[0])
+    hs = []
+    for g in (1, 2):
+        row = words(port.n_words, rng)
+        hs.append((port.push(row), ref.push(row)))
+        assert port.add_segment(segs[g], tenant="t") == \
+            ref.add_segment(segs[g], tenant="t") == g
+    row = words(7, rng)
+    hs.append((port.push(row[:4], cover=1), ref.push(row[:4], cover=1)))
+    tids = np.sort(rng.choice(32 * 7, size=20, replace=False)).astype(
+        np.uint32)
+    hs.append((port.push_tids(tids), ref.push_tids(tids)))
+    hs.append((port.materialize(0, hs[1][0]), ref.materialize(0, hs[1][1])))
+    assert [p for p, _ in hs] == [r for _, r in hs]
+    for name in ("n_words", "n_segments", "n_rows"):
+        assert getattr(port, name) == getattr(ref, name), name
+    for g in range(3):
+        assert port.seg_words(g) == ref.seg_words(g)
+        assert port.seg_nbytes(g) == ref.seg_nbytes(g)
+        assert port.seg_tid_range(g) == ref.seg_tid_range(g)
+        assert port.seg_tenant(g) == ref.seg_tenant(g)
+        np.testing.assert_array_equal(port.seg_view(g), ref.seg_view(g))
+        np.testing.assert_array_equal(port.seg_gather(g, [5, 1, 2]),
+                                      ref.seg_gather(g, [5, 1, 2]))
+    assert port.tenant_segments("t") == ref.tenant_segments("t") == (1, 2)
+    assert [port.n_words_upto(u) for u in range(4)] == \
+        [ref.n_words_upto(u) for u in range(4)]
+    for h, _ in hs:
+        assert port.cover_of(h) == ref.cover_of(h)
+        for u in (1, 2, 3):
+            np.testing.assert_array_equal(port.row_upto(h, u),
+                                          ref.row_upto(h, u))
+        np.testing.assert_array_equal(port.row(h), ref.row(h))
+    np.testing.assert_array_equal(port.gather([0, 3, 7]),
+                                  ref.gather([0, 3, 7]))
+    np.testing.assert_array_equal(port.rows_view(), ref.rows_view())
+    np.testing.assert_array_equal(port.gather_bits_rows(tids, [0, 2, 6]),
+                                  ref.gather_bits_rows(tids, [0, 2, 6]))
+    assert port.resolve_tids(hs[0][0]).tolist() == \
+        ref.resolve_tids(hs[0][1]).tolist()
+    with pytest.raises(ValueError, match="n_base"):
+        port.add_segment(words((5, 2), rng))
+
+
+@pytest.mark.parametrize("backing", ["auto", "jax"])
+def test_segment_mirrors_bill_and_merge_like_reference(backing):
+    """Per-segment mirrors through ingest, lazy and eager syncs, slot
+    recycling and two compactions: h2d_bytes equals the reference's at
+    every step, an eager ingest bills exactly seg_nbytes, and every
+    mirror holds the live dense rows' words at its segment's width
+    (zeros for sparse, dead and uncovered rows)."""
+    rng = np.random.default_rng(9)
+    port = BitmapArena.from_bitmaps(words((8, 5), rng), device="cpu",
+                                    backing=backing)
+    ref = rtl.BitmapArena.from_bitmaps(words((8, 5), np.random.default_rng(
+        9)), backing=backing)
+    assert port.h2d_bytes == ref.h2d_bytes
+    live = []
+    for step in range(24):
+        op = step % 6
+        if op == 0:
+            seg = words((8, int(rng.integers(1, 4))), rng)
+            before = port.h2d_bytes
+            g = port.add_segment(seg)
+            assert ref.add_segment(seg) == g
+            if backing == "jax":
+                assert port.h2d_bytes - before == port.seg_nbytes(g)
+        elif op in (1, 2):
+            row = words(port.n_words, rng)
+            cov = port.n_segments - (op == 2 and port.n_segments > 1)
+            live.append((port.push(row[:port.n_words_upto(cov)], cover=cov),
+                         ref.push(row[:ref.n_words_upto(cov)], cover=cov)))
+        elif op == 3 and live:
+            hp, hr = live.pop(0)
+            port.release(hp)
+            ref.release(hr)
+        elif op == 4:
+            tids = np.sort(rng.choice(32 * port.n_words, size=4,
+                                      replace=False)).astype(np.uint32)
+            live.append((port.push_tids(tids), ref.push_tids(tids)))
+        else:
+            up = int(rng.integers(2, port.n_segments + 1))
+            assert port.compact(up) == ref.compact(up)
+            assert port.compaction_bytes == ref.compaction_bytes
+        for g in range(port.n_segments):
+            if step % 2 or g % 2 == 0:       # syncs land unevenly
+                mirrored_rows(port, g)
+                ref.device_rows(0, segment=g)
+        assert port.h2d_bytes == ref.h2d_bytes, step
+    assert port.compactions == ref.compactions > 0
+    for g in range(port.n_segments):
+        m = mirrored_rows(port, g)
+        assert m.shape == (port.n_rows, port.seg_words(g))
+        assert port.device_rows(g).shape[1] == port.seg_mirror_words(g)
+        for hp, _ in live:
+            if port.rep_of(hp) == ttl.REP_BITMAP:
+                np.testing.assert_array_equal(m[hp], port.seg_row(g, hp))
+            else:
+                assert not m[hp].any()
+        # the pad words past the segment's width stay zero after merges
+        assert not port.device_rows(g)[:, port.seg_words(g):].any()
+    assert port.h2d_bytes == ref.h2d_bytes

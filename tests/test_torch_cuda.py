@@ -12,7 +12,8 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.core.tidlist import pack_database, to_device_words
+from repro_torch.core.tidlist import (pack_database, popcount32,
+                                      to_device_words)
 from repro_torch.kernels.bitmap_join import ops as bj
 from repro_torch.kernels.bitmap_join.ref import (bitmap_join_many_ref,
                                                  bitmap_join_ref)
@@ -279,3 +280,100 @@ def test_launcher_on_card(cuda, capsys):
              if ln.startswith(("cilk", "clustered"))]
     assert len(lines) == 2 and all(f"frequent={n}" in ln for ln in lines)
     assert "device=cuda" in out
+
+
+# tuple prefixes: (n_rows, stride, n_words, B, E, L) — mixed tuple
+# lengths with a pad request, a segment-width store of odd stride and
+# one of 79 words, and the streaming phase's shapes (B up to 32 delta
+# or query requests, pow2 segment strides of tens to hundreds of words)
+@pytest.mark.parametrize("n_rows,stride,n_words,b,e,tuple_len", [
+    (6, 8, 8, 3, 5, 2), (30, 79, 79, 5, 7, 8), (16, 333, 333, 4, 70, 3),
+    (500, 128, 79, 32, 64, 7), (500, 512, 313, 32, 256, 3),
+    (40, 4096, 3125, 4, 64, 2)])
+def test_bitmap_join_many_rows_tuple_kernel_matches_plain(
+        cuda, n_rows, stride, n_words, b, e, tuple_len):
+    rng = np.random.default_rng(n_rows + stride + tuple_len)
+    m, pidx, eidx = cases.tuple_case(rng, n_rows, stride, b, e, tuple_len)
+    args = (to_device_words(m, cuda), torch.from_numpy(pidx).to(cuda),
+            to_device_words(m, cuda), torch.from_numpy(eidx).to(cuda),
+            n_words)
+    n0 = bj.launches
+    got = bj.bitmap_join_many_rows(*args)
+    assert bj.launches == n0 + 1
+    assert torch.equal(got, bitmap_join_many_rows_ref(*args))
+    p = cases.gathered_tuple_prefixes(m, pidx, n_words)
+    x = cases.gathered_rows(m, eidx, n_words)
+    want = popcount32(p[:, None, :] & x).sum(axis=2)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_segment_mirrors_merge_on_card_after_compact(cuda):
+    """Per-segment mirrors on the card, merged by compact: the merged
+    mirror holds each live dense row's words at the merged width with
+    zero pad words, and a sweep over it counts what the host does."""
+    from repro_torch.core import join_backend as jb
+    from repro_torch.core.tidlist import BitmapArena, from_device_words
+    rng = np.random.default_rng(2)
+    segs = [rng.integers(0, 2 ** 32, size=(12, w), dtype=np.uint32)
+            for w in (37, 5, 11)]
+    arena = BitmapArena.from_bitmaps(segs[0], device=cuda, backing="jax")
+    h = arena.push(rng.integers(0, 2 ** 32, size=37, dtype=np.uint32))
+    for s in segs[1:]:
+        arena.add_segment(s)
+    # eager: every segment's base rows; h covers segment 0 only and
+    # reaches its mirror at the next sync
+    assert arena.h2d_bytes == 12 * (37 + 5 + 11) * 4
+    for g in range(3):
+        arena.device_rows(g)
+    assert arena.h2d_bytes == 12 * (37 + 5 + 11) * 4 + 37 * 4
+    assert arena.compact(3) == 2
+    merged = arena.device_rows(0)
+    assert merged.device.type == cuda.type and merged.shape[1] == 64
+    host = from_device_words(merged[:, :53].contiguous())
+    np.testing.assert_array_equal(host[:12], np.concatenate(segs, axis=1))
+    np.testing.assert_array_equal(host[h], arena.row(h))
+    assert not merged[:, 53:].any()
+    reqs = [jb.SweepRequest((0, 1), (2, 3, h)), jb.SweepRequest(h, (4,))]
+    got = jb.TorchBackend().sweep_many(arena, reqs)
+    want = jb.NumpyBackend().sweep_many(arena, reqs)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("granularity", ["bucket", "depth-first"])
+def test_streaming_refresh_and_serving_on_card(cuda, granularity):
+    """Ingest, refresh and serve on the card: every generation equals
+    the serial miner, the dense kernel runs tuple prefixes, and device
+    top-k equals the host ranking."""
+    from repro_torch.core import streaming as ts
+    rng = np.random.default_rng(4)
+    txs = [sorted(rng.choice(40, size=rng.integers(2, 8),
+                             replace=False).tolist()) for _ in range(1200)]
+    sm = ts.StreamingMiner(40, 30, initial_db=txs[:1000], device=cuda,
+                           max_k=4, arena="jax", granularity=granularity)
+    try:
+        sm.refresh()
+        b0 = bj.launches
+        for lo, hi in ((1000, 1100), (1100, 1200)):
+            rep = sm.ingest(txs[lo:hi])
+            assert rep.h2d_bytes == sm.arena.seg_nbytes(rep.segment)
+            sm.refresh()
+            full = pack_database(txs[:hi], 40)
+            assert dict(sm.snapshot.supports) == repro_torch.mine_serial(
+                full, 30, max_k=4)
+        assert bj.launches > b0
+        probes = [(0, 1, 2, 3, 4, 5), (7, 9, 11)]
+        want = [sum(1 for t in txs if set(x) <= set(t)) for x in probes]
+        assert sm.support_many(probes) == want
+        snap = sm.snapshot
+        host = snap.top_k((1,), 5)
+        ts.TOPK_DEVICE_MIN, old = 0, ts.TOPK_DEVICE_MIN
+        try:
+            dev = ts.PatternSnapshot(snap.generation, snap.n_transactions,
+                                     snap.min_support, snap.supports,
+                                     device=cuda).top_k((1,), 5)
+        finally:
+            ts.TOPK_DEVICE_MIN = old
+        assert dev == host
+    finally:
+        sm.close()

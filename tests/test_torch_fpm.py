@@ -13,8 +13,11 @@ import torch
 
 import repro_torch
 from repro.core import fpm as rfpm
+from repro.core import tidlist as rtl
+from repro.core.streaming import StreamingMiner as RStreamingMiner
 from repro_torch.core import fpm as tfpm
 from repro_torch.core import join_backend as tjb
+from repro_torch.core.streaming import StreamingMiner
 from repro_torch.core.tidlist import BitmapArena, pack_database
 from repro_torch.data import transactions as tt
 
@@ -236,22 +239,69 @@ def test_mine_without_device_raises_when_no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": 2}, {"hosts": 2}, {"delta": object()}])
+    {"mesh": 2}, {"hosts": 2}, {"stream_mesh": 2}])
 def test_later_slices_raise_not_implemented(kwargs):
+    """Meshes and multi-host runs wait for later slices, for a batch
+    mine and for a streaming miner alike (``mine_more(delta=)`` runs
+    since the streaming slice: see the test below)."""
     bm = np.ones((3, 2), np.uint32)
-    if "delta" not in kwargs:
+    if "stream_mesh" not in kwargs:
         with pytest.raises(NotImplementedError):
             tfpm.mine(bm, 1, device="cpu", **kwargs)
         return
-    store = BitmapArena.from_bitmaps(bm, device="cpu")
-    result, frequent = tfpm._level1(bm, 1)
-    run = tfpm.MiningRun(store, policy="clustered", n_workers=1,
-                         granularity="bucket", cache_size=4)
-    try:
-        with pytest.raises(NotImplementedError):
-            tfpm.mine_more(run, 1, 3, result, frequent, **kwargs)
-    finally:
-        run.close()
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        StreamingMiner(3, 1, device="cpu", mesh=2)
+    with pytest.raises(NotImplementedError, match="cluster"):
+        StreamingMiner(3, 1, device="cpu", hosts=2)
+
+
+@pytest.mark.parametrize("granularity", ["bucket", "depth-first"])
+def test_mine_more_delta_equals_reference(granularity):
+    """``mine_more(delta=)`` on a two-segment arena: the same plan
+    (known supports of the first segment, the second pending) gives the
+    reference's supports, known-store updates and plan counters."""
+    db, p = tt.load("retail", 0)
+    db = db[:600]
+    bm0 = pack_database(db[:590], p.n_items)
+    bm1 = pack_database(db[590:], p.n_items)
+    full, counts = pack_database(db, p.n_items, return_counts=True)
+    ms, max_k = 15, 3
+    # the known store of a refresh over the first segment: frequent
+    # itemsets and the negative border
+    rsm = RStreamingMiner(p.n_items, ms, initial_db=db[:590], max_k=max_k,
+                          n_workers=1)
+    rsm.refresh()
+    known = dict(rsm._known)
+    rsm.close()
+    dirty = frozenset(int(i) for i in np.nonzero(
+        rtl.popcount32(bm1).sum(axis=1))[0])
+    out = []
+    for mod, arena in ((tfpm, BitmapArena.from_bitmaps(bm0, device="cpu")),
+                       (rfpm, rtl.BitmapArena.from_bitmaps(bm0))):
+        arena.add_segment(bm1)
+        plan = mod.DeltaPlan(known=dict(known), dirty_items=dirty,
+                             segments=(1,), base_segments=(0, 1),
+                             priority_of=lambda pre: 1.0)
+        result, frequent = mod._level1(full, ms, counts=counts)
+        kw = {"backend": "torch"} if mod is tfpm else {
+            "backend": "pallas-interpret"}
+        run = mod.MiningRun(arena, policy="clustered", n_workers=1,
+                            granularity=granularity, cache_size=8,
+                            item_counts=counts, **kw)
+        try:
+            mod.mine_more(run, ms, max_k, result, frequent, delta=plan)
+        finally:
+            run.close()
+        met = run.finalize(0.0)
+        out.append((plan.known, plan.reused, plan.swept_delta,
+                    plan.swept_full, met.rows_touched, met.bytes_swept,
+                    arena.h2d_bytes, result))
+    assert out[0] == out[1]
+    assert out[0][1] > 0 and out[0][2] > 0 and out[0][3] > 0
+    want = rfpm.mine_serial(full, ms, max_k=max_k)
+    got = {c: s for c, s in out[0][0].items() if s >= ms}
+    got.update({c: s for c, s in out[0][7].items() if len(c) == 1})
+    assert got == want
 
 
 def test_bad_options_raise_value_error():

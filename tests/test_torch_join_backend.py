@@ -347,3 +347,134 @@ def test_host_gather_sweep_bills_like_reference():
                   else rows[p])
         np.testing.assert_array_equal(g, naive_counts(prefix, rows[list(e)]))
     assert port.h2d_bytes == ref.h2d_bytes > 0
+
+
+# ------------------------------------------------ segments and tuples
+def segmented_pair(backing):
+    """Port and reference arenas built by the same calls: 10 base rows
+    over three segments (widths 5, 3 and 2 words), a dense row pushed
+    before the last segment (it covers two), and a tid-list whose tids
+    span the three segments' windows."""
+    rng = np.random.default_rng(3)
+    segs = [rand_rows(10, w, rng) for w in (5, 3, 2)]
+    port = BitmapArena.from_bitmaps(segs[0], device="cpu", backing=backing)
+    ref = rtl.BitmapArena.from_bitmaps(segs[0], backing=backing)
+    for a in (port, ref):
+        a.add_segment(segs[1])
+    row = rand_rows(1, 8, rng)[0]
+    hd = (port.push(row), ref.push(row))
+    for a in (port, ref):
+        a.add_segment(segs[2])
+    tids = np.sort(rng.choice(32 * 10, size=60, replace=False)).astype(
+        np.uint32)
+    ht = (port.push_tids(tids), ref.push_tids(tids))
+    assert hd[0] == hd[1] and ht[0] == ht[1]
+    return port, ref, hd[0], ht[0]
+
+
+def segment_flushes(hd, ht):
+    """Flushes of ``(prefix, exts, segments)``: tuple prefixes of mixed
+    lengths, single rows, a two-segment row, a sparse prefix across
+    segment boundaries, and segment subsets."""
+    return [
+        [((0, 1), (2, 3, 4), None), (5, (6, 7), None),
+         ((1, 2, 3), (0, 9), None), (ht, (1, 2, 3, 4), None)],
+        [((0, 1), (2, 3), (2,)), ((4, 5, 6), (7,), (1, 2)),
+         (hd, (0, 1, 2), (0, 1)), (ht, (5, 6), (1,)),
+         (3, (8,), (0, 2))],
+        [(hd, (4, 5), None), (ht, (0,), (0, 2)), ((2, 3), (9,), (1,))],
+    ]
+
+
+@pytest.mark.parametrize("backing", ["auto", "jax", "numpy"])
+def test_torch_backend_segments_and_tuples_match_reference(backing):
+    """Tuple prefixes, segment subsets and sparse prefixes across
+    segment boundaries, on a segmented arena and again after
+    compaction: the kernel backend's counts and h2d bill equal the
+    reference's pallas-interpret backend flush by flush, and the counts
+    equal the numpy backend's."""
+    port, ref, hd, ht = segmented_pair(backing)
+    backend = jb.TorchBackend()
+    for stage in ("segmented", "compacted"):
+        if stage == "compacted":
+            assert port.compact(2) == ref.compact(2) == 1
+            assert port.compaction_bytes == ref.compaction_bytes > 0
+            assert port.n_segments == ref.n_segments == 2
+        for flush in segment_flushes(hd, ht):
+            if stage == "compacted":
+                # segment ids shift down by one past the merged block
+                flush = [(p, e, None if s is None
+                          else tuple(sorted({max(0, g - 1) for g in s})))
+                         for p, e, s in flush]
+            got = backend.sweep_many(port, [
+                jb.SweepRequest(p, e, segments=s) for p, e, s in flush])
+            want = rjb.get_backend("pallas-interpret").sweep_many(ref, [
+                rjb.SweepRequest(p, e, segments=s) for p, e, s in flush])
+            host = jb.NumpyBackend().sweep_many(port, [
+                jb.SweepRequest(p, e, segments=s) for p, e, s in flush])
+            for g, w, h in zip(got, want, host):
+                np.testing.assert_array_equal(g, w)
+                np.testing.assert_array_equal(g, h)
+            assert port.h2d_bytes == ref.h2d_bytes, (stage, flush)
+    assert port.h2d_bytes > 0
+
+
+def test_torch_backend_launches_once_per_segment_and_representation(
+        monkeypatch):
+    """A flush over a three-segment arena makes one dense and one
+    sparse launch per segment it touches, each on that segment's
+    mirror at its width; tuple prefixes arrive as [B, L] rows with -1
+    past each tuple's end, single-row batches as [B]."""
+    port, _, hd, ht = segmented_pair("auto")
+    calls = []
+    # index tensors are views of the reused staging buffer: keep copies
+    for name, index_args in (("bitmap_join_many_rows", (1, 3)),
+                             ("gather_intersect_many_rows", (0, 1, 3))):
+        fn = getattr(jb, name)
+
+        def entry(*args, _fn=fn, _name=name, _idx=index_args):
+            calls.append((_name, [a.clone() if i in _idx else a
+                                  for i, a in enumerate(args)]))
+            return _fn(*args)
+        monkeypatch.setattr(jb, name, entry)
+    backend = jb.TorchBackend()
+    backend.sweep_many(port, [jb.SweepRequest((0, 1, 2), (3, 4)),
+                              jb.SweepRequest(5, (6,)),
+                              jb.SweepRequest(ht, (7, 8))])
+    assert [n for n, _ in calls] == ["bitmap_join_many_rows",
+                                     "gather_intersect_many_rows"] * 3
+    for g in range(3):
+        (_, dense), (_, sparse) = calls[2 * g], calls[2 * g + 1]
+        mirror = port.device_rows(g)
+        assert dense[0].data_ptr() == mirror.data_ptr()
+        assert dense[0].shape[1] == port.seg_mirror_words(g)
+        assert dense[4] == sparse[4] == port.seg_words(g)
+        assert dense[1].tolist() == [[0, 1, 2], [5, -1, -1]]
+    calls.clear()
+    backend.sweep_many(port, [jb.SweepRequest(5, (6,), segments=(1,))])
+    assert len(calls) == 1 and calls[0][1][1].tolist() == [5]
+
+
+@pytest.mark.parametrize("name", ["numpy", "torch"])
+def test_dispatcher_bursts_match_reference(name):
+    """``submit_many`` (priority bursts jump the queue in order) and
+    ``sweep_local`` (inline on the host backend, queued on the kernel
+    backend) give the reference's counts over a segmented arena."""
+    port, ref, hd, ht = segmented_pair("auto")
+    sweeps = [((0, 1), (2, 3)), (hd, (4,)), (ht, (5, 6, 7)), (3, (9,))]
+    disp = jb.SweepDispatcher(port, jb.resolve_backend(name), n_clients=1)
+    rdisp = rjb.SweepDispatcher(ref, rjb.get_backend("numpy"), n_clients=1)
+    try:
+        for segs in (None, (1, 2)):
+            got = disp.sweep_local(sweeps, segments=segs)
+            want = rdisp.sweep_local(sweeps, segments=segs)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+            futs = disp.submit_many(sweeps, segments=segs, priority=True)
+            for f, w in zip(futs, want):
+                np.testing.assert_array_equal(f.result(timeout=10), w)
+        assert disp.query_requests == 2 * len(sweeps)
+        assert disp.sweep_local([]) == []
+    finally:
+        disp.stop()
+        rdisp.stop()

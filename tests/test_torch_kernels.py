@@ -235,6 +235,43 @@ def test_bitmap_join_many_rows_plain_matches_reference_kernel(
     assert not want[eidx < 0].any() and not want[pidx < 0].any()
 
 
+# (n_rows, stride, n_words, B, E, L): prefix tuples of L rows (mixed
+# lengths in one batch, a pad request), over a segment-width store of
+# odd stride and one of 79 words, and over pow2 mirror strides
+@pytest.mark.parametrize("n_rows,stride,n_words,b,e,tuple_len", [
+    (6, 8, 8, 3, 5, 2), (20, 64, 33, 4, 9, 3), (30, 79, 79, 5, 7, 8),
+    (16, 333, 333, 4, 70, 3), (12, 128, 79, 3, 4, 2)])
+def test_bitmap_join_many_rows_tuples_match_and_then_join(
+        n_rows, stride, n_words, b, e, tuple_len):
+    """The [B, L] plain version equals an explicit AND of each tuple
+    followed by the reference kernel's join of that prefix."""
+    rng = np.random.default_rng(n_rows * 100 + stride + tuple_len)
+    m, pidx, eidx = cases.tuple_case(rng, n_rows, stride, b, e, tuple_len)
+    p = cases.gathered_tuple_prefixes(m, pidx, n_words)
+    x = cases.gathered_rows(m, eidx, n_words)
+    want = np.asarray(bitmap_join_many_kernel(jnp.asarray(p), jnp.asarray(x),
+                                              interpret=True))
+    args = (t32(m), torch.from_numpy(pidx), t32(m), torch.from_numpy(eidx),
+            n_words)
+    n0 = bj.launches
+    for got in (bitmap_join_many_rows_ref(*args),
+                bj.bitmap_join_many_rows(*args)):
+        assert got.dtype == torch.int32 and got.shape == (b, e)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert bj.launches == n0
+    assert not want[-1].any()                   # the pad request
+    # L = 1 as [B, 1] is the [B] form
+    one = torch.from_numpy(np.ascontiguousarray(pidx[:, :1]))
+    np.testing.assert_array_equal(
+        bj.bitmap_join_many_rows(t32(m), one, t32(m),
+                                 torch.from_numpy(eidx), n_words).numpy(),
+        bj.bitmap_join_many_rows(t32(m), one[:, 0].contiguous(), t32(m),
+                                 torch.from_numpy(eidx), n_words).numpy())
+    with pytest.raises(ValueError, match="L >= 1"):
+        bj.bitmap_join_many_rows(t32(m), one[:, :0], t32(m),
+                                 torch.from_numpy(eidx), n_words)
+
+
 # (n_rows, stride, n_words, B, E, S, tids past n_words): as above, plus
 # a store read at a narrower width with tids past it (clamped to the
 # last word read, which the reference's jnp and numpy oracles do too)

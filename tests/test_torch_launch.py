@@ -63,8 +63,52 @@ def test_launcher_trace_writes_chrome_json(tmp_path, capsys):
 @pytest.mark.parametrize("flag", ["--mesh", "--hosts", "--stream",
                                   "--serve"])
 def test_later_slice_flags_raise_not_implemented(flag):
+    """--mesh and --hosts wait for later slices; --stream and --serve run
+    since the streaming slice (see below), but not over a mesh."""
+    extra = ["--mesh", "2"] if flag in ("--stream", "--serve") else []
     with pytest.raises(NotImplementedError, match="slice"):
-        tlaunch.main([*SMALL, "--device", "cpu", flag, "2"])
+        tlaunch.main([*SMALL, "--device", "cpu", flag, "2", *extra])
+
+
+STREAM_KEYS = ("reused", "delta", "full", "born", "died")
+
+
+def _stream_lines(out):
+    """{generation: {key: value}} of the stream rounds, the first
+    generation's frequent count, and the serve stats line."""
+    gens = {}
+    for m in re.finditer(r"^stream gen(\d+): \+\d+tx .*$", out, re.M):
+        gens[int(m.group(1))] = {
+            k: int(re.search(rf"\b{k}=(\d+)", m.group(0)).group(1))
+            for k in STREAM_KEYS}
+    first = int(re.search(r"^stream gen1: .*frequent=(\d+)", out,
+                          re.M).group(1))
+    serve = re.search(r"^serve stats: (.*)$", out, re.M).group(1)
+    return gens, first, serve
+
+
+@pytest.mark.parametrize("backend", ["numpy", "torch"])
+def test_launcher_stream_and_serve_match_reference(monkeypatch, capsys,
+                                                   backend):
+    """--stream 2 --serve 4: the same rounds, border and reuse counts,
+    final check against the serial miner, and served query counts and
+    sweep bytes as the reference launcher's."""
+    args = [*SMALL, "--stream", "2", "--serve", "4", "--policies",
+            "clustered"]
+    monkeypatch.setattr(sys, "argv", ["fpm_mine", *args, "--backend",
+                                      "numpy"])
+    rlaunch.main()
+    want = capsys.readouterr().out
+    tlaunch.main([*args, "--device", "cpu", "--backend", backend])
+    got = capsys.readouterr().out
+    assert "stream final == serial" in got
+    gens, first, serve = _stream_lines(got)
+    assert (gens, first, serve) == _stream_lines(want)
+    assert sorted(gens) == [2, 3] and first > 0
+    assert {re.search(r"^serve (\w+)\s*: n=\s*(\d+)", line).group(1)
+            for line in got.splitlines()
+            if re.match(r"^serve \w+\s*: n=", line)} == {
+        "hit", "sweep", "top_k"}
 
 
 def test_launcher_without_card_or_device_raises(monkeypatch):
