@@ -377,3 +377,36 @@ def test_streaming_refresh_and_serving_on_card(cuda, granularity):
         assert dev == host
     finally:
         sm.close()
+
+
+def _tie_heavy_supports():
+    """The serving tests' tie-heavy supports: dense bands of equal
+    supports among singletons, pairs and triples."""
+    rng = np.random.default_rng(0)
+    supports = {}
+    for i in range(20):
+        supports[(i,)] = 50 + int(rng.integers(0, 4))
+    for i in range(12):
+        for j in range(i + 1, 12):
+            supports[(i, j)] = 10 + (i + j) % 5
+    for x in [(0, 1, 2), (0, 1, 3), (0, 2, 5), (1, 2, 3), (2, 3, 4)]:
+        supports[x] = 7
+    return supports
+
+
+@pytest.mark.parametrize("prefix,k", [
+    ((), 10), ((), 1000), ((0,), 4), ((1,), 1), ((0, 1), 5),
+    ((0, 1, 2), 3), ((9, 10, 11, 12), 2)])
+def test_top_k_on_card_equals_host_on_ties(cuda, monkeypatch, prefix, k):
+    """The device ranking on tie-heavy supports equals the host's
+    stable order (equal supports rank lexicographically), and it ran
+    on the card."""
+    from repro_torch.core import streaming as ts
+    supports = _tie_heavy_supports()
+    host = ts.PatternSnapshot(1, 100, 2, supports, device="cpu").top_k(
+        prefix, k)
+    monkeypatch.setattr(ts, "TOPK_DEVICE_MIN", 0)
+    snap = ts.PatternSnapshot(1, 100, 2, supports, device=cuda)
+    assert snap.top_k(prefix, k) == host
+    if len(prefix) < 3:
+        assert snap._index._dev[0].is_cuda
