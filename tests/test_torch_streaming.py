@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 from _hyp import given, settings, st
 
+from repro.core import fpm as rfpm
 from repro.core import streaming as rs
 from repro.core.fpm import mine as rmine
 from repro.core.itemsets import brute_force_frequent
@@ -90,6 +91,28 @@ def zipf_db(n, items=60, seed=1):
             for _ in range(n)]
 
 
+def _gated_roots(spawn_roots):
+    """``_ClassMiner.spawn_roots`` with the one worker held in a gate
+    task until every root class is queued. Otherwise the worker starts
+    on the first root while the driver is still spawning the rest, and
+    which root it takes next (so which rows are live at each mirror sync,
+    and the arena's row high-water mark) depends on the thread timing."""
+    def gated(self, frequent, result):
+        entered, release = threading.Event(), threading.Event()
+
+        def gate():
+            entered.set()
+            release.wait()
+
+        self.sched.spawn(gate, attr=(0, ()), worker=0)
+        assert entered.wait(60), "the worker never took the gate task"
+        try:
+            spawn_roots(self, frequent, result)
+        finally:
+            release.set()
+    return gated
+
+
 GAUGES = ("rows_touched", "bytes_swept", "h2d_bytes", "compacted_segments",
           "reused", "swept_delta", "swept_full", "stayed", "born", "died",
           "dirty_items", "frequent", "segments_refreshed")
@@ -98,19 +121,23 @@ GAUGES = ("rows_touched", "bytes_swept", "h2d_bytes", "compacted_segments",
 @pytest.mark.parametrize("granularity,arena", [
     ("bucket", "auto"), ("candidate", "auto"), ("depth-first", "auto"),
     ("auto", "auto"), ("bucket", "jax"), ("depth-first", "jax")])
-def test_one_worker_gauges_equal_reference(granularity, arena):
+def test_one_worker_gauges_equal_reference(granularity, arena,
+                                          monkeypatch):
     """One worker fixes the schedule, so the deterministic gauges of
     every ingest and refresh — rows and bytes touched, h2d per ingest
     and per refresh, the plan's reuse counters, compaction — equal the
     reference's kernel-backend run, with tid-list prefixes (sparse
     sweeps) in the refreshes.
 
-    Compaction bills the arena's row high-water mark times the merged
-    width. The levelwise engines' high-water mark is fixed by the prefix
-    caches, so their compaction bytes must be equal; the depth-first
-    engine's depends on how the driver's root spawns interleave with the
-    worker (in the reference too), so there the bill is held to its
-    definition instead."""
+    The depth-first driver spawns its root classes while the worker
+    already runs them, in both engines, so the roots are gated
+    (:func:`_gated_roots`) until all are queued; without the gate the
+    h2d and compaction bytes of a depth-first refresh follow the thread
+    timing. Compaction bills the arena's row high-water mark times the
+    merged width, and is also held to that definition."""
+    for miner in (rfpm._ClassMiner, tfpm._ClassMiner):
+        monkeypatch.setattr(miner, "spawn_roots",
+                            _gated_roots(miner.spawn_roots))
     db = zipf_db(1500)
     kw = dict(granularity=granularity, n_workers=1, max_k=3, arena=arena)
     sm = port_miner(60, 12, initial_db=db[:1440], **kw)
@@ -131,12 +158,9 @@ def test_one_worker_gauges_equal_reference(granularity, arena):
             assert dict(sm.snapshot.border) == dict(ref.snapshot.border)
             for g in GAUGES:
                 assert getattr(rep, g) == getattr(rrep, g), g
-            if granularity == "depth-first":
-                assert rep.compaction_bytes == (
-                    rep.compacted_segments and sm.arena.n_rows
-                    * sm.arena.seg_words(0) * 4)
-            else:
-                assert rep.compaction_bytes == rrep.compaction_bytes
+            assert rep.compaction_bytes == rrep.compaction_bytes == (
+                rep.compacted_segments and sm.arena.n_rows
+                * sm.arena.seg_words(0) * 4)
             assert rep.metrics.sparse_sweeps == rrep.metrics.sparse_sweeps
             sparse += rep.metrics.sparse_sweeps
             reused += rep.reused
