@@ -93,10 +93,39 @@ kernels line counts their launches:
               --stream 2 --serve 64 --max-k 8`` in this process; it
               checks the final generation against ``mine_serial``
               itself.
-Each run of phases 11-14 wraps the backend's four kernel entries
+Four more phases follow, also before the profile, on the phase-3 data
+(clustered, 8 workers per host):
+ 15. cluster  ``repro_torch.mine(hosts=2)`` at bucket grain and max_k=8
+              (supports equal ``mine_serial``, one reduction per flush,
+              ``net_bytes`` > 0, ``bitmap_join_many`` launched on both
+              hosts' mirrors by their own flushes and by peer
+              evaluations with tuple prefixes), then at max_k=4 three
+              hosts, depth-first grain, and every bucket on host 0 (a
+              cross-host steal must happen); prints wall, flushes,
+              occupancy, ``net_bytes`` and each host's ``eval_s`` and
+              ``eval_bytes`` beside phase 4;
+ 16. cluster-stream  ``StreamingMiner(hosts=2)`` on phase 13's stream at
+              max_k=4 (``arena="jax"``): each ingest bills its segment's
+              payload on the owner host and 0 B on the peer, and the
+              final supports equal ``mine_serial``;
+ 17. tenants  a ``TenantHub`` with tenant a (weight 4, transactions
+              0-49,999) and b (weight 1, 50,000-99,999), max_k=4: each
+              mines 45,000, then ingests 2 x 2,500 with a refresh after
+              each, the two tenants refreshing at once from two threads;
+              during the second refresh 256 ``support_many`` batches of 8
+              go to each tenant (each answer equal to a host
+              AND-popcount over that tenant's data), and each final
+              snapshot equals ``mine_serial`` of its own 50,000;
+ 18. hosts    the launcher's ``main`` with ``--dataset t10i4 --hosts 2
+              --max-k 8``: two rank processes on the one card over a
+              TCPStore; rank 0 checks its result against ``mine_serial``,
+              each rank prints its kernel launches (parsed here; both
+              must be > 0), and a rank's non-zero exit fails the phase.
+Each run of phases 11-17 wraps the backend's four kernel entries
 (``EntrySpy``): calls must equal the counted launches, and each entry's
 first call (and the dense entry's first tuple-prefix call) is held
-against its plain version.
+against its plain version; in phases 15-16 also the first tuple-prefix
+call of a peer evaluation (``HostSpy``).
 
 The script imports nothing of JAX or of the reference package ``repro``.
 It exits non-zero without a result when no CUDA device is present.
@@ -125,7 +154,9 @@ L2_FLUSH_BYTES = 256 << 20     # > the H100's 50 MB L2
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    # one write per line: phase 17 logs from two threads at once
+    sys.stdout.write(msg + "\n")
+    sys.stdout.flush()
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3, cold: bool = False):
@@ -990,6 +1021,433 @@ def phase_launcher_stream():
     return launches
 
 
+class HostSpy:
+    """Wraps the cluster's hooks for one phase: each ``TorchBackend.
+    sweep_many`` call is attributed to the arena it sweeps, as an origin
+    flush or, inside the peer evaluator, a peer evaluation, and each
+    ``bitmap_join_many`` indexed call under it is counted per (arena,
+    role). Keeps the first peer-evaluation tuple-prefix call's arguments
+    (pidx [B, L]) and the run's ``ClusterGauges``. Enter it inside an
+    ``EntrySpy``, so that both see every call."""
+
+    def __enter__(self):
+        import threading
+        from repro_torch.core import cluster, join_backend
+        self.local = threading.local()
+        self.calls = collections.Counter()
+        self.peer_tuple = None
+        self.gauges = None
+        self.targets = [(join_backend.TorchBackend, "sweep_many"),
+                        (cluster._PeerEval, "__call__"),
+                        (cluster.LoopbackContext, "reduce_flush"),
+                        (join_backend, "bitmap_join_many_rows")]
+        self.originals = [getattr(o, n) for o, n in self.targets]
+        sweep_many, peer_eval, reduce_flush, rows = self.originals
+        spy = self
+
+        def swept(backend, arena, requests):
+            prev = getattr(spy.local, "arena", None)
+            spy.local.arena = arena
+            try:
+                return sweep_many(backend, arena, requests)
+            finally:
+                spy.local.arena = prev
+
+        def peer(evaluator, descs):
+            spy.local.peer = True
+            try:
+                return peer_eval(evaluator, descs)
+            finally:
+                spy.local.peer = False
+
+        def reduced(ctx, requests, results):
+            spy.gauges = ctx.gauges
+            return reduce_flush(ctx, requests, results)
+
+        def launched(*args):
+            role = "peer" if getattr(spy.local, "peer", False) else "origin"
+            spy.calls[(id(spy.local.arena), role)] += 1
+            if (role == "peer" and args[1].dim() == 2
+                    and spy.peer_tuple is None):
+                store = args[0].clone()
+                spy.peer_tuple = (store, args[1].clone(), store,
+                                  args[3].clone(), args[4])
+            return rows(*args)
+
+        for (obj, name), fn in zip(self.targets,
+                                   (swept, peer, reduced, launched)):
+            setattr(obj, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (obj, name), fn in zip(self.targets, self.originals):
+            setattr(obj, name, fn)
+
+    def take(self):
+        """{role: {arena id: dense launches}} since the last take."""
+        out = {"origin": {}, "peer": {}}
+        for (arena, role), n in self.calls.items():
+            out[role][arena] = n
+        self.calls.clear()
+        return out
+
+    def check_hosts(self, label, hosts, one_owner=False):
+        """Every host's mirror took both its own flushes and peer
+        evaluations — or, with every bucket on one host (``one_owner``),
+        that host's mirror its flushes and the other's the peer
+        evaluations of them (a stolen bucket still sweeps through its
+        origin's dispatcher). Returns the per-role launch counts."""
+        seen = self.take()
+        origin, peer = set(seen["origin"]), set(seen["peer"])
+        ok = ((len(origin), len(peer)) == (1, hosts - 1)
+              and not origin & peer) if one_owner else (
+            len(origin) == hosts and origin == peer)
+        if not ok:
+            raise SystemExit(f"{label}: bitmap_join_many launches per host "
+                             f"mirror {seen} over {hosts} hosts")
+        return {r: sorted(v.values()) for r, v in seen.items()}
+
+    def hold(self, label):
+        """The first peer-evaluation tuple call against its plain
+        version."""
+        import torch
+        from repro_torch.kernels.bitmap_join import ops as bj
+        from repro_torch.kernels.bitmap_join.ref import (
+            bitmap_join_many_rows_ref)
+        args = self.peer_tuple
+        if args is None:
+            raise SystemExit(f"{label}: no peer evaluation made a "
+                             f"tuple-prefix launch")
+        got = bj.bitmap_join_many_rows(*args)
+        want = bitmap_join_many_rows_ref(*args)
+        torch.cuda.synchronize()
+        shape = describe("bitmap_join_many", args)
+        if not torch.equal(got, want):
+            raise SystemExit(f"{label}: a peer evaluation's tuple-prefix "
+                             f"bitmap_join_many disagrees with its plain "
+                             f"version at {shape}")
+        log(f"  {label}: bitmap_join_many at the first peer evaluation "
+            f"with tuple prefixes ({shape}): equals its plain version ok")
+
+
+def log_cluster(label, wall, met, extra=""):
+    hosts = "; ".join(
+        f"host {h['host']}: bytes_swept={h['bytes_swept']} "
+        f"sweep_s={h['sweep_s']:.3f} eval_s={h['eval_s']:.3f} "
+        f"eval_bytes={h['eval_bytes']}" for h in met.per_host)
+    log(f"{label}: wall_s={wall:.3f} flushes={met.flushes} "
+        f"occupancy={met.batch_occupancy:.2f} net_bytes={met.net_bytes} "
+        f"steal_net={met.steal_net} cross_steals={met.cross_steals} "
+        f"{extra}[{hosts}]")
+
+
+def phase_cluster(dev, bitmaps, counts, min_support, serial, bitmap_met):
+    """Phase 15: the multi-host mine on the card, the launch counts set
+    to 0 just before and read just after: ``repro_torch.mine(hosts=2)``
+    at bucket grain and max_k=8 (supports equal ``mine_serial``, one
+    reduction per flush, bytes on the interconnect, ``bitmap_join_many``
+    launched on both hosts' mirrors by their own flushes and by peer
+    evaluations with tuple prefixes), then at max_k=4 three hosts,
+    depth-first grain and a forced cross-host steal. Returns the
+    launches."""
+    import repro_torch
+    from repro_torch.core import cluster
+    want4 = {c: v for c, v in serial.items() if len(c) <= BITMAP_MAX_K}
+    with EntrySpy() as spy, HostSpy() as hosts:
+        reset_launches()
+        t0 = time.perf_counter()
+        result, met = repro_torch.mine(
+            bitmaps, min_support, device=dev, hosts=2, granularity="bucket",
+            policy="clustered", max_k=MAIN_MAX_K, item_counts=counts)
+        wall = time.perf_counter() - t0
+        if result != serial:
+            raise SystemExit("cluster: supports differ from mine_serial")
+        g = hosts.gauges.snapshot()
+        if g["reduced_flushes"] != met.flushes or met.net_bytes <= 0:
+            raise SystemExit(f"cluster: {g['reduced_flushes']} reductions "
+                             f"for {met.flushes} flushes, net_bytes "
+                             f"{met.net_bytes}")
+        per_role = hosts.check_hosts("cluster", 2)
+        log_cluster(f"cluster mine[hosts=2, bucket, max_k={MAIN_MAX_K}]",
+                    wall, met, f"reduced_flushes={g['reduced_flushes']} "
+                    f"bitmap_join_many per host mirror {per_role} ")
+        log(f"  against phase 4 (one host, bitmap, max_k={BITMAP_MAX_K}): "
+            f"wall_s={bitmap_met.wall_s:.3f} flushes={bitmap_met.flushes} "
+            f"occupancy={bitmap_met.batch_occupancy:.2f}; "
+            f"supports==mine_serial ok")
+        runs = [("hosts=3, bucket", dict(hosts=3)),
+                ("hosts=2, depth-first", dict(hosts=2,
+                                              granularity="depth-first")),
+                ("hosts=2, bucket, every bucket on host 0",
+                 dict(hosts=2, owner_fn=lambda key: 0))]
+        for label, kw in runs:
+            for attempt in range(3):
+                t0 = time.perf_counter()
+                result, met = cluster.mine_cluster(
+                    bitmaps, min_support, device=dev, policy="clustered",
+                    max_k=BITMAP_MAX_K, item_counts=counts,
+                    **{"granularity": "bucket", **kw})
+                wall = time.perf_counter() - t0
+                if result != want4:
+                    raise SystemExit(f"cluster[{label}]: supports differ "
+                                     f"from mine_serial")
+                if "owner_fn" not in kw or met.cross_steals > 0:
+                    break
+                log(f"  cluster[{label}]: no cross-host steal in attempt "
+                    f"{attempt + 1}; again")
+            if "owner_fn" in kw and not (met.cross_steals > 0
+                                         and met.steal_net > 0):
+                raise SystemExit(f"cluster[{label}]: no cross-host steal "
+                                 f"in 3 runs")
+            per_role = hosts.check_hosts(f"cluster[{label}]", kw["hosts"],
+                                         one_owner="owner_fn" in kw)
+            log_cluster(f"cluster mine[{label}, max_k={BITMAP_MAX_K}]", wall,
+                        met, f"bitmap_join_many per host mirror {per_role} ")
+        launches = counted_launches()
+    spy.check_route("cluster", launches, 0, indexed=True)
+    log(f"cluster: launches={json.dumps(launches)}, all through the indexed "
+        f"entries; tuple shapes (B', L, E', W_seg): "
+        f"{dict(spy.tuple_shapes.most_common(6))}")
+    spy.hold("cluster")
+    hosts.hold("cluster")
+    return launches
+
+
+def phase_cluster_stream(dev, db, n_items, min_support, serial):
+    """Phase 16: ``StreamingMiner(hosts=2)`` on phase 13's stream at
+    max_k=4 (``arena="jax"``), the launch counts set to 0 just before and
+    read just after: each ingest bills its segment's payload on the
+    owner host and nothing on the peer, and the final supports equal
+    ``mine_serial``. Returns the launches."""
+    from repro_torch.core import streaming as ts
+    want = {c: v for c, v in serial.items() if len(c) <= BITMAP_MAX_K}
+    with EntrySpy() as spy, HostSpy() as hosts:
+        reset_launches()
+        t0 = time.perf_counter()
+        sm = ts.StreamingMiner(
+            n_items, min_support, initial_db=db[:STREAM_INITIAL],
+            device=dev, policy="clustered", n_workers=8,
+            max_k=BITMAP_MAX_K, granularity="bucket", arena="jax", hosts=2)
+        try:
+            loaded = [ar.h2d_bytes for ar in sm._harenas]
+            log(f"cluster-stream: StreamingMiner(hosts=2) over "
+                f"{STREAM_INITIAL} transactions (arena='jax', bucket, "
+                f"max_k={BITMAP_MAX_K}) built in "
+                f"{time.perf_counter() - t0:.2f} s; h2d at load per host "
+                f"{loaded} B")
+            rep = sm.refresh()
+            log_cluster(f"  initial: refresh gen {rep.generation}",
+                        rep.wall_s, rep.metrics,
+                        f"frequent={rep.frequent} rows={rep.rows_touched} ")
+            for lo, hi in STREAM_BATCHES:
+                h0 = [ar.h2d_bytes for ar in sm._harenas]
+                ing = sm.ingest(db[lo:hi])
+                billed = [ar.h2d_bytes - h
+                          for ar, h in zip(sm._harenas, h0)]
+                if sorted(billed) != [0, ing.payload_bytes] or (
+                        ing.h2d_bytes != ing.payload_bytes):
+                    raise SystemExit(f"cluster-stream: ingest of "
+                                     f"{hi - lo} transactions billed "
+                                     f"{billed} B per host, not "
+                                     f"{ing.payload_bytes} B on one")
+                log(f"  ingest [{lo}, {hi}): segment {ing.segment}, "
+                    f"W_seg={ing.words}, h2d per host {billed} B: the "
+                    f"payload on the owner, 0 on the peer ok")
+                rep = sm.refresh()
+                log_cluster(f"  +{hi - lo} tx: refresh gen {rep.generation}",
+                            rep.wall_s, rep.metrics,
+                            f"dirty_items={rep.dirty_items} "
+                            f"reused={rep.reused} delta={rep.swept_delta} "
+                            f"full={rep.swept_full} ")
+            if dict(sm.snapshot.supports) != want:
+                raise SystemExit("cluster-stream: final supports differ "
+                                 "from mine_serial")
+            gauges = sm.cluster_gauges
+        finally:
+            sm.close()
+        per_role = hosts.check_hosts("cluster-stream", 2)
+        launches = counted_launches()
+    spy.check_route("cluster-stream", launches, 0, indexed=True)
+    log(f"cluster-stream: final supports == mine_serial ({len(want)} "
+        f"itemsets) ok; lifetime gauges {gauges}; launches="
+        f"{json.dumps(launches)}; bitmap_join_many per host mirror "
+        f"{per_role}, per segment width {dict(spy.widths)}")
+    spy.hold("cluster-stream")
+    hosts.hold("cluster-stream")
+    return launches
+
+
+TENANTS = {"a": ((0, 50_000), 4.0), "b": ((50_000, 100_000), 1.0)}
+TENANT_INITIAL = 45_000
+TENANT_BATCH = 2_500
+
+
+def phase_tenants(dev, db, n_items, min_support):
+    """Phase 17: a ``TenantHub`` on the card with two weighted tenants
+    (``TENANTS``), the launch counts set to 0 just before and read just
+    after. Each tenant mines its first 45,000 transactions, then ingests
+    2 x 2,500, each followed by a refresh, the two tenants' refreshes
+    running at once from two threads; during the second refresh 256
+    ``support_many`` batches of 8 go to each tenant, each answer equal
+    to a host AND-popcount over that tenant's refreshed data. Each final
+    snapshot equals ``mine_serial`` of its own 50,000 transactions.
+    Returns the launches."""
+    import threading
+    import numpy as np
+    from repro_torch.core import fpm
+    from repro_torch.core import streaming as ts
+    from repro_torch.core.tidlist import pack_database, support_of
+    frac = min_support / len(db)
+    rng = np.random.default_rng(17)
+    probes, counts = {}, {}
+    for tid, ((lo, hi), _) in TENANTS.items():
+        # never-counted itemsets (longer than max_k): every one sweeps
+        xs = []
+        while len(xs) < 256 * 8:
+            t = db[int(rng.integers(lo, hi))]
+            if len(t) >= BITMAP_MAX_K + 1:
+                k = int(rng.integers(BITMAP_MAX_K + 1,
+                                     min(7, len(t)) + 1))
+                xs.append(tuple(sorted(int(i) for i in
+                                       rng.choice(t, k, replace=False))))
+        probes[tid] = xs
+        # host counts over each boundary a query may see
+        for n in (TENANT_INITIAL + TENANT_BATCH,
+                  TENANT_INITIAL + 2 * TENANT_BATCH):
+            words = pack_database(db[lo:lo + n], n_items)
+            counts[tid, n] = [support_of(words[list(x)]) for x in xs]
+    answers = {tid: [] for tid in TENANTS}
+    errors = []
+    with EntrySpy() as spy:
+        reset_launches()
+        t_all = time.perf_counter()
+        hub = ts.TenantHub(n_items, device=dev, policy="clustered",
+                           n_workers=8, max_k=BITMAP_MAX_K)
+        try:
+            tenants = {tid: hub.tenant(tid, frac, weight=w)
+                       for tid, (_, w) in TENANTS.items()}
+
+            def grow(tid, lo, hi):
+                try:
+                    t = tenants[tid]
+                    t.ingest(db[lo:hi])
+                    rep = t.refresh()
+                    log(f"  tenant {tid}: +{hi - lo} tx, refresh gen "
+                        f"{rep.generation} wall_s={rep.wall_s:.3f} "
+                        f"frequent={rep.frequent} reused={rep.reused} "
+                        f"delta={rep.swept_delta} full={rep.swept_full}")
+                except BaseException as e:  # noqa: BLE001 - failed below
+                    errors.append(e)
+
+            def ask(tid):
+                try:
+                    t = tenants[tid]
+                    xs = probes[tid]
+                    for i in range(0, len(xs), 8):
+                        with hub._state:
+                            n = t.snapshot.n_transactions
+                        t0 = time.perf_counter()
+                        got = t.support_many(xs[i:i + 8])
+                        answers[tid].append(
+                            (n, i, got, time.perf_counter() - t0))
+                except BaseException as e:  # noqa: BLE001 - failed below
+                    errors.append(e)
+
+            starts = {tid: lo for tid, ((lo, _), _) in TENANTS.items()}
+            rounds = [(0, TENANT_INITIAL)] + [
+                (TENANT_INITIAL + r * TENANT_BATCH,
+                 TENANT_INITIAL + (r + 1) * TENANT_BATCH) for r in range(2)]
+            for r, (a, b) in enumerate(rounds):
+                threads = [threading.Thread(
+                    target=grow, args=(tid, starts[tid] + a, starts[tid] + b))
+                    for tid in TENANTS]
+                if r == 2:
+                    threads += [threading.Thread(target=ask, args=(tid,))
+                                for tid in TENANTS]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                if errors:
+                    raise errors[0]
+            stats = hub.tenant_stats()
+            snaps = {tid: t.snapshot for tid, t in tenants.items()}
+        finally:
+            hub.close()
+        wall = time.perf_counter() - t_all
+        launches = counted_launches()
+    for tid, rows in answers.items():
+        for n, i, got, _ in rows:
+            want = [counts[tid, m][i:i + 8] for m in
+                    (TENANT_INITIAL + TENANT_BATCH,
+                     TENANT_INITIAL + 2 * TENANT_BATCH) if m >= n]
+            if got not in want:
+                raise SystemExit(f"tenants: tenant {tid}'s answers "
+                                 f"{got} to batch {i // 8} are no host "
+                                 f"count over its data")
+        lat = np.asarray([r[3] for r in rows]) / 8 * 1e3
+        log(f"tenants: tenant {tid}: {len(rows)} batches of 8 during the "
+            f"second refresh == host AND-popcount ok; per query p50="
+            f"{np.percentile(lat, 50):.4f} ms p99="
+            f"{np.percentile(lat, 99):.4f} ms (host clock)")
+    for tid, ((lo, hi), _) in TENANTS.items():
+        snap = snaps[tid]
+        want = fpm.mine_serial(pack_database(db[lo:hi], n_items),
+                               snap.min_support, max_k=BITMAP_MAX_K)
+        if dict(snap.supports) != want:
+            raise SystemExit(f"tenants: tenant {tid}'s snapshot differs "
+                             f"from mine_serial of its {hi - lo} "
+                             f"transactions")
+        log(f"tenants: tenant {tid}: snapshot gen {snap.generation} == "
+            f"mine_serial of its {hi - lo} transactions at min_support "
+            f"{snap.min_support} ({len(want)} itemsets) ok; "
+            f"tenant_stats {stats[tid]}")
+    spy.check_route("tenants", launches, 0, indexed=True)
+    log(f"tenants: {wall:.1f} s in all; launches={json.dumps(launches)}, "
+        f"tuple shapes (B', L, E', W_seg): "
+        f"{dict(spy.tuple_shapes.most_common(4))}")
+    spy.hold("tenants")
+    return launches
+
+
+def phase_hosts():
+    """Phase 18: the launcher's ``main`` with ``--dataset t10i4 --hosts 2
+    --max-k 8``: two rank processes on the one card over a TCPStore the
+    launcher hosts. Rank 0 checks its result against ``mine_serial``;
+    each rank prints its kernel launches, parsed here (the ranks are
+    processes of their own, so their counts start at 0). A rank's
+    non-zero exit fails the phase. Returns the launches of both ranks
+    together."""
+    import contextlib
+    import io
+    import re
+    from repro_torch.launch import fpm_mine
+    argv = ["--dataset", "t10i4", "--hosts", "2", "--policies", "clustered",
+            "--max-k", str(MAIN_MAX_K)]
+    log(f"hosts: python -m repro_torch.launch.fpm_mine {' '.join(argv)}")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        fpm_mine.main(argv)
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"  {line}")
+    ranks = {int(r or 0): json.loads(j) for r, j in re.findall(
+        r"^(?:rank (\d+): )?launches: (\{.*\})$", text, re.M)}
+    if "equals mine_serial" not in text:
+        raise SystemExit("hosts: rank 0 did not report its check against "
+                         "mine_serial")
+    if sorted(ranks) != [0, 1] or not all(
+            r["bitmap_join_many"] > 0 for r in ranks.values()):
+        raise SystemExit(f"hosts: rank launches {ranks}")
+    launches = {k: sum(r[k] for r in ranks.values())
+                for k in ("bitmap_join_many", "gather_intersect_many")}
+    log(f"hosts: 2 ranks on the card in {wall:.1f} s (the launcher's wall, "
+        f"process start included); launches per rank {ranks}")
+    return launches
+
+
 def phase_profile(dev, bitmaps, counts, min_support, granularity,
                   representation, max_k):
     """A rerun of a mining phase under torch.profiler: how much of its
@@ -1325,8 +1783,8 @@ def main() -> int:
         raise SystemExit(f"a kernel never launched on the main path: "
                          f"{got}")
     note("bucket", got)
-    got, _ = phase_mine(dev, bitmaps, counts, min_support, "bucket",
-                        "bitmap", BITMAP_MAX_K, serial)
+    got, bitmap_met = phase_mine(dev, bitmaps, counts, min_support,
+                                 "bucket", "bitmap", BITMAP_MAX_K, serial)
     if got["bitmap_join_many"] == 0 or got["gather_intersect_many"] != 0:
         raise SystemExit(f"representation='bitmap' must launch only "
                          f"bitmap_join_many: {got}")
@@ -1365,6 +1823,12 @@ def main() -> int:
     sm.close()
     note("stream-depth-first", got)
     note("launcher-stream", phase_launcher_stream())
+    note("cluster", phase_cluster(dev, bitmaps, counts, min_support, serial,
+                                  bitmap_met))
+    note("cluster-stream", phase_cluster_stream(dev, db, prof.n_items,
+                                                min_support, serial))
+    note("tenants", phase_tenants(dev, db, prof.n_items, min_support))
+    note("hosts", phase_hosts())
 
     for granularity, representation, max_k in (
             ("bucket", "auto", MAIN_MAX_K),

@@ -35,8 +35,10 @@ upload (``MiningMetrics.h2d_bytes``) instead of one upload per sweep.
 worker task/steal/park spans, dispatcher flush spans, the arena's
 mirror syncs and the driver's level spans. ``mine_more(delta=)`` is the
 streaming refresh's incremental re-mine (``DeltaPlan``; driven by
-``repro_torch.core.streaming``). Multi-device meshes and multi-host runs
-belong to later slices of the port and raise ``NotImplementedError``.
+``repro_torch.core.streaming``). ``mine(hosts=N)`` runs the same
+engines over N word-sliced host arenas with two-phase support counting
+(``repro_torch.core.cluster``). Multi-device meshes belong to a later
+slice of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -103,6 +105,16 @@ class MiningMetrics:
     sparsify_ops: int = 0
     sparsify_bytes: int = 0
     rep_picks: Dict[str, int] = field(default_factory=dict)
+    # multi-host gauges (cluster runs only): hosts in the run, bytes that
+    # crossed (or, loopback, would have crossed) the interconnect
+    # (descriptor flushes + count replies + level exchanges + steal
+    # migrations), the steal share of them, cross-host steals, and one
+    # row per host (bytes swept, local sweep and peer-evaluation time)
+    n_hosts: int = 1
+    net_bytes: int = 0
+    steal_net: int = 0
+    cross_steals: int = 0
+    per_host: List[Dict[str, float]] = field(default_factory=list)
 
     @property
     def cache_hit_rate(self) -> float:
@@ -312,27 +324,36 @@ class EngineRuntime:
     lends it to every refresh's :class:`MiningRun`, so query sweeps
     submitted between (and during) refreshes land on the same dispatcher
     as candidate sweeps and coalesce into the same flushes. Idle cost is
-    zero: the dispatcher thread and the workers park untimed."""
+    zero: the dispatcher thread and the workers park untimed.
+
+    ``cluster`` is a multi-host context (``repro_torch.core.cluster``):
+    the dispatcher reduces every flush across hosts through it, and the
+    engines partition work and exchange level results through it."""
 
     def __init__(self, store: BitmapArena, *, policy: str = "clustered",
                  n_workers: int = 8, granularity: str = "bucket",
                  backend: str = "auto", max_batch: int = MAX_BATCH,
-                 flush_us: float = FLUSH_US, tracer=None):
+                 flush_us: float = FLUSH_US, cluster=None, tracer=None):
         self.store = store
         self.backend = resolve_backend(backend)
+        self.cluster = cluster
         # observability (repro_torch.obs): one tracer threaded through
         # every layer this runtime owns — scheduler workers, the
         # dispatcher thread and the arena record into its per-thread
-        # rings. None keeps every site on the disabled fast path.
+        # rings. None keeps every site on the disabled fast path. In
+        # cluster mode the host rank is the Chrome-trace pid, one lane
+        # group per host.
+        self.trace_pid = cluster.host_id if cluster is not None else 0
         if tracer is not None:
             store.tracer = tracer
         self.dispatchers = [SweepDispatcher(
             store, self.backend, n_clients=n_workers,
-            max_batch=max_batch, flush_us=flush_us, tracer=tracer)]
+            max_batch=max_batch, flush_us=flush_us, cluster=cluster,
+            tracer=tracer, trace_pid=self.trace_pid)]
         self.sched = TaskScheduler(
             n_workers,
             make_policy(policy, n_workers, _cluster_fn(granularity, policy)),
-            tracer=tracer)
+            tracer=tracer, trace_pid=self.trace_pid)
         # pull-based snapshot API: live gauges, readable any time
         self.registry = MetricsRegistry()
         self.registry.register("scheduler", self.sched.merged_stats)
@@ -402,6 +423,9 @@ class MiningRun:
         self.sched = runtime.sched
         self.metrics = MiningMetrics()
         self.caches: Dict[int, _PrefixCache] = {}   # thread ident -> cache
+        # cluster mode routes even candidate-grain joins through the
+        # dispatcher: a direct host join would skip the reduction
+        self.sweep_joins = runtime.cluster is not None
         # gauge baselines: zero for an owned runtime, the accumulated
         # counters for a borrowed one — finalize() reports deltas
         self._disp0 = [(d.flushes, d.requests, d.queue_flushes,
@@ -509,16 +533,30 @@ def mine(bitmaps: np.ndarray, min_support: int, *,
     ``trace`` attaches a :class:`repro_torch.obs.Tracer`: workers, the
     dispatcher, the arena and the driver record span timelines into it
     (export with ``repro_torch.obs.write_chrome_trace``; None = off).
+    ``hosts`` > 1 runs the multi-host decomposition
+    (``repro_torch.core.cluster.mine_cluster``): the transaction axis
+    word-partitions over N logical hosts in this process, each with its
+    own arena slice on ``device``, scheduler and dispatcher, with
+    two-phase support counting and cross-host steals. The supports are
+    identical; the cluster traffic lands in ``MiningMetrics.net_bytes``
+    and ``steal_net``. Such a run pins ``representation="bitmap"`` and
+    ignores ``arena``.
 
-    ``mesh`` and ``hosts`` are the reference engine's options that later
-    slices of the port cover; here they raise ``NotImplementedError``."""
+    ``mesh`` is the reference engine's multi-device option, which a
+    later slice of the port covers; here it raises
+    ``NotImplementedError``."""
     dev = resolve_device(device)
     if mesh is not None:
         raise NotImplementedError("mesh= comes with the port's "
                                   "multi-device slice")
     if hosts > 1:
-        raise NotImplementedError("hosts > 1 comes with the port's "
-                                  "cluster slice")
+        from repro_torch.core.cluster import mine_cluster
+        return mine_cluster(bitmaps, min_support, hosts=hosts, device=dev,
+                            policy=policy, n_workers=n_workers,
+                            max_k=max_k, cache_size=cache_size,
+                            granularity=granularity, backend=backend,
+                            max_batch=max_batch, flush_us=flush_us,
+                            item_counts=item_counts, tracer=trace)
     store = BitmapArena.from_bitmaps(bitmaps, device=dev, backing=arena)
     t0 = time.perf_counter()
     # level 1 before the runtime spins up worker/dispatcher threads:
@@ -547,28 +585,33 @@ def mine_more(run: MiningRun, min_support: int, max_k: int,
     (delta=None: sweep everything) and the streaming refresh (delta:
     reuse known supports, delta-sweep dirty candidates over the pending
     segments only, carry staleness priorities)."""
+    cluster = run.runtime.cluster
     tr = run.sched.tracer
     if tr is not None:
-        # whichever thread drives this run gets the "driver" lane
-        tr.set_lane("driver", sort_index=0)
+        # whichever thread drives this run gets the "driver" lane (one
+        # per host in cluster mode: drivers are distinct threads)
+        tr.set_lane("driver", sort_index=0, pid=run.runtime.trace_pid)
     if run.granularity == "depth-first":
         _mine_depth_first(run.store, run.dispatchers[0], min_support,
                           max_k, run.sched, run.metrics, result, frequent,
-                          delta=delta, model=run.model)
+                          delta=delta, model=run.model, cluster=cluster)
     else:
         _mine_levelwise(run.store, run.dispatchers[0], min_support,
                         max_k, run.sched, run.metrics, result, frequent,
                         run.granularity, run.cache_size, run.caches,
-                        delta=delta, model=run.model)
+                        sweep_joins=run.sweep_joins, delta=delta,
+                        model=run.model, cluster=cluster)
 
 
 def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
                     metrics, result, frequent, granularity, cache_size,
-                    caches, delta=None, model=None):
+                    caches, sweep_joins=False, delta=None, model=None,
+                    cluster=None):
     """Level-synchronous engine: plan level k, spawn, barrier, plan
     level k+1 (the paper's §2 shape, at candidate or bucket grain).
-    Candidate tasks join on the host directly; bucket tasks, and every
-    segment-restricted sweep, go through the dispatcher.
+    Candidate tasks join on the host directly; bucket tasks, every
+    segment-restricted sweep and, with ``sweep_joins`` (cluster runs),
+    every candidate join go through the dispatcher.
 
     With a ``delta`` plan the level's candidates split three ways:
     *clean known* (support unchanged — zero rows touched), *dirty known*
@@ -590,9 +633,15 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
     (``gen_candidates`` gets the full known-frequent set, so the
     cross-prefix prune stays exact). Under a delta plan auto stays
     level-synchronous: the clean/dirty/fresh split already skips clean
-    work, and diffset handoffs are disabled mid-refresh anyway."""
+    work, and diffset handoffs are disabled mid-refresh anyway.
+
+    Under a ``cluster`` every host plans the same global frontier, sweeps
+    only the prefixes it owns and merges the level's counted pairs in an
+    exchange, so every host thresholds identically; a delta plan's
+    known-store update runs once per store inside that exchange."""
     n_w = store.n_words
-    # cached prefix rows must cover every segment the plan sweeps
+    # cached prefix rows must cover every segment the plan sweeps; max+1
+    # because a tenant's segment set is a non-contiguous subset
     upto = ((max(delta.base_segments) + 1)
             if delta is not None and delta.base_segments else None)
     lock = threading.Lock()
@@ -649,10 +698,11 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
                 st.sparse_bytes_swept += len(store.tids_of(ph)) * 4
             else:
                 st.dense_sweeps += 1
-            if segments is not None:
+            if sweep_joins or segments is not None:
                 st.sweeps_submitted += 1
                 return int(dispatcher.sweep(ph, (cand[-1],),
-                                            segments=segments)[0])
+                                            segments=segments,
+                                            desc=cand[:-1])[0])
             if sparse:
                 # cached sparse prefixes are tid-lists (never
                 # diffsets), so the gather count IS the support
@@ -680,7 +730,8 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
                                           * len(bucket.exts))
             else:
                 st.dense_sweeps += 1
-            return dispatcher.sweep(ph, bucket.exts, segments=segments)
+            return dispatcher.sweep(ph, bucket.exts, segments=segments,
+                                    desc=bucket.prefix)
         finally:
             store.release(ph)
 
@@ -720,6 +771,10 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
         """Spawn sweeps for ``cands`` (bucket- or candidate-grained) and
         return a collector to call AFTER ``wait_all`` — fresh and dirty
         sweep sets share one level barrier."""
+        if cluster is not None:
+            # every host plans the same global frontier but sweeps only
+            # the prefixes it owns; the level exchange merges the pairs
+            cands = [c for c in cands if cluster.owns(c[:-1])]
         if not cands:
             return lambda: []
         if granularity in ("bucket", "auto"):
@@ -810,28 +865,57 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
         level: List[Tuple[Itemset, int]] = []
         if delta is None:
             collect = _spawn_sweeps(cands, None)
-            sched.wait_all()
+            if cluster is None:
+                sched.wait_all()
+            else:
+                cluster.level_wait(sched)
             if df_miner is not None:
                 _raise_task_errors(detached_tasks)
                 df_miner.raise_errors()
             level = collect()
+            if cluster is not None:
+                level = cluster.exchange(level)
         else:
             clean, dirty, fresh = delta.classify_buckets(
                 group_by_prefix(cands))
             level.extend(clean)                 # clean: zero rows read
-            delta.reused += len(clean)
-            delta.swept_full += len(fresh)
-            delta.swept_delta += sum(len(b.exts) for b in dirty)
+            if cluster is None or cluster.host_id == 0:
+                # loopback hosts share the plan: bill its avoided-work
+                # counters once, not once per host
+                delta.reused += len(clean)
+                delta.swept_full += len(fresh)
+                delta.swept_delta += sum(len(b.exts) for b in dirty)
+            if cluster is not None:
+                dirty = [b for b in dirty if cluster.owns(b.prefix)]
             collect_fresh = _spawn_sweeps(fresh, delta.base_segments)
             collect_dirty = _spawn_delta_chunks(dirty)
-            sched.wait_all()
-            for c, s in collect_fresh():
-                delta.known[c] = s
-                level.append((c, s))
-            for c, d in collect_dirty():
-                s = delta.known[c] + d          # delta over pending segs
-                delta.known[c] = s
-                level.append((c, s))
+            if cluster is None:
+                sched.wait_all()
+                for c, s in collect_fresh():
+                    delta.known[c] = s
+                    level.append((c, s))
+                for c, d in collect_dirty():
+                    s = delta.known[c] + d      # delta over pending segs
+                    delta.known[c] = s
+                    level.append((c, s))
+            else:
+                cluster.level_wait(sched)
+                mined = ([(c, s, True) for c, s in collect_fresh()]
+                         + [(c, d, False) for c, d in collect_dirty()])
+
+                def _apply(merged):
+                    # runs once per known store (host 0 under loopback,
+                    # where the hosts share the plan): fold fresh supports
+                    # and dirty deltas into ``known`` and return the
+                    # globally thresholdable (itemset, support) pairs
+                    out = []
+                    for c, v, is_fresh in merged:
+                        s = v if is_fresh else delta.known[c] + v
+                        delta.known[c] = s
+                        out.append((c, s))
+                    return out
+
+                level.extend(cluster.exchange(mined, update=_apply))
         for c, s in level:
             if s >= min_support:
                 result[c] = s
@@ -902,10 +986,14 @@ class _ClassMiner:
     delta (``allow_diffset=False``): a dirty diffset sweep would need
     |parent ∩ e ∩ pending|, which the delta path does not carry;
     tid-list children delta-sweep fine (the backend cuts the payload to
-    the pending segments' tid windows)."""
+    the pending segments' tid windows).
+
+    Under a ``cluster`` the root classes partition by owner host, and
+    every class sweep names its prefix itemset so the peers can count
+    it."""
 
     def __init__(self, store, dispatcher, min_support, max_k, sched,
-                 metrics, result, delta=None, model=None):
+                 metrics, result, delta=None, model=None, cluster=None):
         self.store = store
         self.dispatcher = dispatcher
         self.min_support = min_support
@@ -915,6 +1003,7 @@ class _ClassMiner:
         self.result = result
         self.delta = delta
         self.model = model
+        self.cluster = cluster
         self.n_w = store.n_words
         self.lock = threading.Lock()
         self.all_tasks: List = []
@@ -1016,7 +1105,7 @@ class _ClassMiner:
                 is_diff = rep == tidlist.REP_DIFFSET
             if sub is None and delta is None:
                 st.sweeps_submitted += 1
-                counts, pbits = disp.sweep_bits(ph, exts)
+                counts, pbits = disp.sweep_bits(ph, exts, desc=prefix)
                 if is_diff:
                     # dEclat arithmetic: the backend counted |diff ∩ e|;
                     # the parent's sibling supports turn it into support
@@ -1041,10 +1130,11 @@ class _ClassMiner:
                 # generation-boundary segments, never ones an overlapped
                 # ingest appended mid-refresh
                 ffut = (disp.submit(ph, tuple(fresh_e),
-                                    segments=delta.base_segments)
+                                    segments=delta.base_segments,
+                                    desc=prefix)
                         if fresh_e else None)
                 dfut = (disp.submit(ph, tuple(dirty_e),
-                                    segments=delta.segments)
+                                    segments=delta.segments, desc=prefix)
                         if dirty_e else None)
                 updates: Dict[Itemset, int] = {}
                 if ffut is not None:
@@ -1240,6 +1330,8 @@ class _ClassMiner:
         sup = {p[0]: result[p] for p in frequent}
         for i, it in enumerate(items[:-1]):
             sibs = tuple(items[i + 1:])
+            if self.cluster is not None and not self.cluster.owns((it,)):
+                continue              # a peer host mines this subtree
             if self.delta is not None and not self.needs_visit((it,), sibs):
                 continue              # clean root class: skip entirely
             t = self.spawn((it,), it, sibs, tuple(sup[e] for e in sibs),
@@ -1254,13 +1346,25 @@ class _ClassMiner:
 
 
 def _mine_depth_first(store, dispatcher, min_support, max_k, sched,
-                      metrics, result, frequent, delta=None, model=None):
-    """Barrier-free engine: see :class:`_ClassMiner`."""
+                      metrics, result, frequent, delta=None, model=None,
+                      cluster=None):
+    """Barrier-free engine: see :class:`_ClassMiner`. Under a cluster the
+    root classes partition by owner host (the per-flush reduction makes
+    every count global, so each subtree's decisions are host-independent)
+    and one terminal exchange replicates the mined itemsets."""
     miner = _ClassMiner(store, dispatcher, min_support, max_k, sched,
-                        metrics, result, delta=delta, model=model)
+                        metrics, result, delta=delta, model=model,
+                        cluster=cluster)
     miner.spawn_roots(frequent, result)
-    sched.wait_all()                            # the ONLY wait
+    if cluster is None:
+        sched.wait_all()                        # the ONLY wait
+        miner.raise_errors()
+        return
+    cluster.level_wait(sched)
     miner.raise_errors()
+    mined = [(c, s) for c, s in result.items() if len(c) > 1]
+    for c, s in cluster.exchange(mined):
+        result[c] = s
 
 
 def mine_serial(bitmaps: np.ndarray, min_support: int, max_k: int = 8

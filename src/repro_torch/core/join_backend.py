@@ -90,11 +90,20 @@ class SweepRequest:
 
     ``priority`` marks a QUERY-class request (the serving layer's
     unknown-itemset sweeps): it goes to the front of the pending queue
-    and caps the dispatcher's straggler wait at ``QUERY_FLUSH_US``."""
+    and caps the dispatcher's straggler wait at ``QUERY_FLUSH_US``.
+
+    ``desc`` is the request's portable descriptor for multi-host runs:
+    the prefix as base ITEM ids, meaningful on any host's arena slice.
+    Arena handles are host-local (a cached prefix row exists only on the
+    host that built it), so the cluster's cross-host reduction
+    re-evaluates the flush from descriptors; call sites sweeping a
+    derived handle pass the prefix itemset here. Tuple prefixes and
+    base-row handles describe themselves; single-host runs ignore it."""
     prefix_handle: "int | Tuple[int, ...]"
     ext_handles: Tuple[int, ...]
     segments: Optional[Tuple[int, ...]] = None
     priority: bool = False
+    desc: Optional[Tuple[int, ...]] = None
     future: Future = field(default_factory=Future)
 
     @property
@@ -523,15 +532,22 @@ class SweepDispatcher:
     so task bodies re-raise through the scheduler's normal task-error
     machinery. ``batch_occupancy`` (requests per flush) shows whether
     batching actually happened.
+
+    ``cluster`` (a multi-host context, ``repro_torch.core.cluster``)
+    makes every flush two-phase: partial counts over this arena's owned
+    words, then ``cluster.reduce_flush`` adds the peers' partials for the
+    same descriptors. One reduction per flush, so the cross-host traffic
+    amortizes as the launches do.
     """
 
     def __init__(self, arena: BitmapArena, backend: JoinBackend,
                  n_clients: int, max_batch: int = MAX_BATCH,
                  flush_us: float = FLUSH_US, shard: int = 0,
                  query_flush_us: float = QUERY_FLUSH_US,
-                 tracer=None, trace_pid: int = 0):
+                 cluster=None, tracer=None, trace_pid: int = 0):
         self.arena = arena
         self.backend = backend
+        self.cluster = cluster
         # observability: None = off; spans record flush formation on
         # the dispatcher lane and blocking sweeps on the caller's lane
         self.tracer = tracer
@@ -584,11 +600,14 @@ class SweepDispatcher:
 
     def submit(self, prefix_handle, ext_handles: Sequence[int],
                segments: Optional[Sequence[int]] = None,
-               priority: bool = False) -> Future:
+               priority: bool = False,
+               desc: Optional[Tuple[int, ...]] = None) -> Future:
         """Enqueue one sweep; ``prefix_handle`` is a handle or a tuple of
-        handles, ``segments`` restricts it to a segment subset."""
+        handles, ``segments`` restricts it to a segment subset, ``desc``
+        is the prefix itemset a cluster peer evaluates."""
         req = self._make_requests([(prefix_handle, ext_handles)],
                                   segments, priority)[0]
+        req.desc = desc
         self._enqueue([req], priority)
         return req.future
 
@@ -632,6 +651,8 @@ class SweepDispatcher:
         results = self.backend.sweep_many(self.arena, reqs)
         with self._cv:
             self.sweep_s += time.perf_counter() - t0
+        if self.cluster is not None:
+            results = self.cluster.reduce_flush(reqs, results)
         if self.tracer is not None:
             # inline burst: the flush span lands on the calling worker's
             # lane (that is where the time went)
@@ -640,20 +661,22 @@ class SweepDispatcher:
         return results
 
     def sweep(self, prefix_handle, ext_handles: Sequence[int],
-              segments: Optional[Sequence[int]] = None) -> np.ndarray:
+              segments: Optional[Sequence[int]] = None,
+              desc: Optional[Tuple[int, ...]] = None) -> np.ndarray:
         """Blocking convenience: enqueue and wait for the counts."""
         tr = self.tracer
         if tr is None:
             return self.submit(prefix_handle, ext_handles,
-                               segments=segments).result()
+                               segments=segments, desc=desc).result()
         t0 = tr.now()
         counts = self.submit(prefix_handle, ext_handles,
-                             segments=segments).result()
+                             segments=segments, desc=desc).result()
         # caller-side wait: nests inside the worker's task span
         tr.span("sweep", t0, cat="sweep", args={"ext": len(ext_handles)})
         return counts
 
-    def sweep_bits(self, prefix_handle: int, ext_handles: Sequence[int]
+    def sweep_bits(self, prefix_handle: int, ext_handles: Sequence[int],
+                   desc: Optional[Tuple[int, ...]] = None
                    ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """Depth-first class sweep over every segment: ``(counts,
         bits)``, where ``bits`` is the [E, S] payload∩ext matrix of the
@@ -667,8 +690,9 @@ class SweepDispatcher:
         returns no bits. An inline sweep is billed as a 1-request flush,
         so ``flushes × occupancy == requests`` stays exact."""
         if not self.backend.host_parallel:
-            return self.sweep(prefix_handle, ext_handles), None
-        req = SweepRequest(int(prefix_handle), tuple(ext_handles))
+            return self.sweep(prefix_handle, ext_handles, desc=desc), None
+        req = SweepRequest(int(prefix_handle), tuple(ext_handles),
+                           desc=desc)
         with self._cv:
             if self._stop:
                 raise RuntimeError("dispatcher is stopped")
@@ -682,6 +706,9 @@ class SweepDispatcher:
             out = self.backend.sweep_many(self.arena, [req])[0], None
         with self._cv:
             self.sweep_s += time.perf_counter() - t0
+        if self.cluster is not None:
+            # cluster runs pin the bitmap representation: never sparse
+            out = self.cluster.reduce_flush([req], [out[0]])[0], None
         if self.tracer is not None:
             self.tracer.span("sweep", t0, cat="sweep",
                              args={"ext": len(req.ext_handles),
@@ -755,8 +782,15 @@ class SweepDispatcher:
             try:
                 t0 = time.perf_counter()
                 results = self.backend.sweep_many(self.arena, batch)
+                t1 = time.perf_counter()
                 with self._cv:
-                    self.sweep_s += time.perf_counter() - t0
+                    self.sweep_s += t1 - t0
+                if self.cluster is not None:
+                    results = self.cluster.reduce_flush(batch, results)
+                    if tr is not None:
+                        # the cross-host reduction tail of this flush
+                        tr.span("net-flush", t1, cat="net",
+                                args={"requests": len(batch)})
                 if tr is not None:
                     tr.span("flush", t0, cat="flush",
                             args=self._flush_args(batch))

@@ -42,9 +42,10 @@ exactly the frequent itemsets (and supports) of a from-scratch
 policy; and ``support_many`` answers equal brute-force counts over the
 refreshed prefix of the database.
 
-This slice runs one host and one shard: ``hosts > 1`` (the cluster
-slice) and ``mesh`` (the multi-device slice) raise
-``NotImplementedError``, and multi-tenant hubs come later.
+``StreamingMiner(hosts=N)`` runs the same stream over N word-sliced
+host arenas (``repro_torch.core.cluster``), and ``TenantHub`` multiplexes
+several tenants' streams onto one arena and one engine runtime. ``mesh``
+(the multi-device slice) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -57,11 +58,13 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import cluster as _cluster
 from repro_torch.core import tidlist
 from repro_torch.core.fpm import (DeltaPlan, EngineRuntime, MiningMetrics,
                                   MiningRun, mine_more)
 from repro_torch.core.itemsets import Itemset
 from repro_torch.core.join_backend import FLUSH_US, MAX_BATCH
+from repro_torch.core.scheduler import ClusteredPolicy
 from repro_torch.core.tidlist import (BitmapArena, pack_database,
                                       resolve_device)
 from repro_torch.obs import LatencyRecorder, MetricsRegistry
@@ -517,9 +520,21 @@ class StreamingMiner:
     in the arena's ``compaction_bytes`` and reported per refresh. Set
     ``compact_ratio=0.0`` and a huge ``compact_segments`` to disable.
 
-    ``mesh`` and ``hosts`` are the reference's multi-device and
-    multi-host modes, which later slices of the port bring; here they
-    raise ``NotImplementedError``."""
+    Multi-host (``hosts > 1``, loopback): the initial database is
+    word-partitioned into one local arena per logical host, each on
+    ``device``; each ``ingest`` routes its whole segment to the
+    least-loaded host and appends ZERO-WIDTH twins on the peers, so
+    segment ids stay globally aligned and refresh deltas are host-local
+    by construction. A refresh drives one engine per host over ONE
+    shared :class:`DeltaPlan` (the per-flush reduction keeps supports
+    global; idle hosts steal whole buckets from busy peers, billed to
+    ``steal_net``); queries serve through host 0's runtime, whose
+    dispatcher reduction covers the peers. Compaction is off: it would
+    have to renumber every host's segments in lockstep. Such a miner
+    pins ``representation="bitmap"``.
+
+    ``mesh`` is the reference's multi-device mode, which a later slice
+    of the port brings; here it raises ``NotImplementedError``."""
 
     def __init__(self, n_items: int, min_support, *,
                  initial_db: Sequence[Sequence[int]] = (),
@@ -536,11 +551,15 @@ class StreamingMiner:
         if mesh is not None:
             raise NotImplementedError("StreamingMiner(mesh=) comes with "
                                       "the port's multi-device slice")
-        if hosts > 1:
-            raise NotImplementedError("StreamingMiner(hosts > 1) comes "
-                                      "with the port's cluster slice")
         if n_items < 1:
             raise ValueError(f"n_items must be >= 1, got {n_items}")
+        if hosts > 1:
+            if representation not in ("auto", "bitmap"):
+                raise ValueError(
+                    "hosts > 1 requires representation='bitmap' (sparse "
+                    "payloads are positional in one host's slice)")
+            representation = "bitmap"
+        self._hosts = max(1, int(hosts))
         self.device = resolve_device(device)
         self.n_items = n_items
         self.max_k = max_k
@@ -563,8 +582,18 @@ class StreamingMiner:
         # the level-1 supports and the density-model seed
         bitmaps, item_counts = pack_database(initial_db, n_items,
                                              return_counts=True)
-        self.arena = BitmapArena.from_bitmaps(bitmaps, device=self.device,
-                                              backing=arena)
+        self._harenas: Optional[List[BitmapArena]] = None
+        if self._hosts > 1:
+            self._harenas = _cluster.host_arenas(bitmaps, self._hosts,
+                                                 self.device, backing=arena)
+            self.arena = self._harenas[0]
+            self._bus = _cluster._LoopbackBus(self._hosts, self._harenas,
+                                              backend)
+            self._hctxs = [_cluster.LoopbackContext(self._bus, h)
+                           for h in range(self._hosts)]
+        else:
+            self.arena = BitmapArena.from_bitmaps(
+                bitmaps, device=self.device, backing=arena)
         self.n_transactions = len(initial_db)
         self._seg_tx = [len(initial_db)]   # transactions per segment
         self._item_support = item_counts
@@ -584,6 +613,7 @@ class StreamingMiner:
         self._refresh_lock = threading.Lock()   # one refresh at a time
         self._gate = _QueryGate(self._state)
         self._runtime: Optional[EngineRuntime] = None
+        self._hruntimes: Optional[List[EngineRuntime]] = None
         self.query_sweeps = 0
         self.query_sweep_bytes = 0
         self._snapshot = PatternSnapshot(0, self.n_transactions,
@@ -591,18 +621,30 @@ class StreamingMiner:
                                          device=self.device)
 
     # ------------------------------------------------------------ runtime --
+    def _new_runtime(self, arena: BitmapArena, cluster=None
+                     ) -> EngineRuntime:
+        kw = self._run_kw
+        return EngineRuntime(
+            arena, policy=kw["policy"], n_workers=kw["n_workers"],
+            granularity=kw["granularity"], backend=kw["backend"],
+            max_batch=kw["max_batch"], flush_us=kw["flush_us"],
+            cluster=cluster, tracer=self.tracer)
+
     def _ensure_runtime(self) -> EngineRuntime:
         """The persistent engine substrate, created on first use so
-        snapshot-only readers never pay for worker threads."""
+        snapshot-only readers never pay for worker threads (with hosts,
+        one runtime per host; host 0's is the one returned)."""
         with self._state:
             if self._runtime is None:
-                kw = self._run_kw
-                self._runtime = EngineRuntime(
-                    self.arena, policy=kw["policy"],
-                    n_workers=kw["n_workers"],
-                    granularity=kw["granularity"], backend=kw["backend"],
-                    max_batch=kw["max_batch"], flush_us=kw["flush_us"],
-                    tracer=self.tracer)
+                if self._hosts > 1:
+                    self._hruntimes = [
+                        self._new_runtime(self._harenas[h], self._hctxs[h])
+                        for h in range(self._hosts)]
+                    self._bus.scheds = [rt.sched for rt in self._hruntimes]
+                    self._bus.install_steal()
+                    self._runtime = self._hruntimes[0]
+                else:
+                    self._runtime = self._new_runtime(self.arena)
             return self._runtime
 
     @property
@@ -615,8 +657,9 @@ class StreamingMiner:
         refreshes or query sweeps afterwards start a fresh runtime."""
         with self._state:
             runtime, self._runtime = self._runtime, None
-        if runtime is not None:
-            runtime.shutdown()
+            hosts, self._hruntimes = self._hruntimes, None
+        for rt in hosts or ([runtime] if runtime is not None else []):
+            rt.shutdown()
 
     def __enter__(self) -> "StreamingMiner":
         return self
@@ -700,16 +743,28 @@ class StreamingMiner:
         t0 = time.perf_counter()
         seg_bm = pack_database(batch, self.n_items)   # outside any lock
         with self._state:
-            h0 = self.arena.h2d_bytes
-            seg = self.arena.add_segment(seg_bm)
+            if self._hosts > 1:
+                # whole-segment ownership: the least-loaded host gets the
+                # payload, every peer a zero-width twin, so segment ids
+                # stay aligned across the host arenas and this segment's
+                # refresh delta is host-local
+                arenas = self._harenas
+                owner = min(range(self._hosts),
+                            key=lambda h: (arenas[h].n_words, h))
+                empty = np.zeros((seg_bm.shape[0], 0), np.uint32)
+            else:
+                arenas, owner, empty = [self.arena], 0, None
+            h0 = sum(ar.h2d_bytes for ar in arenas)
+            for h, ar in enumerate(arenas):
+                seg = ar.add_segment(seg_bm if h == owner else empty)
             self._seg_tx.append(len(batch))
             self.n_transactions += len(batch)
             self._pending_since.append(t0)
             rep = IngestReport(
                 segment=seg, n_transactions=len(batch),
                 words=seg_bm.shape[1],
-                payload_bytes=self.arena.seg_nbytes(seg),
-                h2d_bytes=self.arena.h2d_bytes - h0,
+                payload_bytes=arenas[owner].seg_nbytes(seg),
+                h2d_bytes=sum(ar.h2d_bytes for ar in arenas) - h0,
                 wall_s=time.perf_counter() - t0)
         tr = self.tracer
         if tr is not None:
@@ -746,9 +801,12 @@ class StreamingMiner:
             base_segments = tuple(range(boundary))
             deltas = np.zeros(self.n_items, np.int64)
             for g in pending:
-                seg = arena.seg_view(g)[:self.n_items]
-                if seg.shape[1]:
-                    deltas += tidlist.popcount32(seg).sum(axis=1)
+                # with hosts a pending segment lives whole on its owner;
+                # the peers' zero-width twins add nothing
+                for ar in self._harenas or (arena,):
+                    seg = ar.seg_view(g)[:self.n_items]
+                    if seg.shape[1]:
+                        deltas += tidlist.popcount32(seg).sum(axis=1)
             dirty = frozenset(int(i) for i in np.nonzero(deltas)[0])
             # query backfills live outside the candidate frontier, so the
             # delta plan is not guaranteed to revisit them — drop the
@@ -778,16 +836,22 @@ class StreamingMiner:
                 (i,): int(s) for i, s in enumerate(item_support) if s >= ms}
             result = dict(singles)
             frequent = sorted(result)
-            h2d0 = arena.h2d_bytes
-            run = MiningRun(arena, item_counts=item_support,
-                            runtime=self._ensure_runtime(), **self._run_kw)
-            run.metrics.frequent += len(frequent)
-            try:
-                mine_more(run, ms, self.max_k, result, frequent, delta=plan)
-            finally:
-                run.close()
-            metrics = run.finalize(t0)
-            metrics.h2d_bytes = arena.h2d_bytes - h2d0
+            if self._hosts > 1:
+                metrics = self._refresh_cluster(plan, item_support, ms,
+                                                singles, t0)
+            else:
+                h2d0 = arena.h2d_bytes
+                run = MiningRun(arena, item_counts=item_support,
+                                runtime=self._ensure_runtime(),
+                                **self._run_kw)
+                run.metrics.frequent += len(frequent)
+                try:
+                    mine_more(run, ms, self.max_k, result, frequent,
+                              delta=plan)
+                finally:
+                    run.close()
+                metrics = run.finalize(t0)
+                metrics.h2d_bytes = arena.h2d_bytes - h2d0
 
             # exact assembly from the reuse store: skipped (clean)
             # subtrees never touched `result`, but their supports are in
@@ -850,6 +914,79 @@ class StreamingMiner:
                 tr.counter("refresh_lag", {"s": self.refresh_lag})
             return report
 
+    # ------------------------------------------------------- multi-host --
+    def _refresh_cluster(self, plan: DeltaPlan, item_support, ms: int,
+                         singles: Dict[Itemset, int],
+                         t0: float) -> MiningMetrics:
+        """One refresh generation over the loopback cluster: N driver
+        threads, each a :class:`MiningRun` on its host's arena slice and
+        persistent cluster runtime, all sharing ONE delta plan (its known
+        store is the working copy the caller commits). The cluster
+        gauges persist for the miner's life, so the merged metrics report
+        THIS refresh's deltas."""
+        self._ensure_runtime()
+        bus, arenas = self._bus, self._harenas
+        g = bus.gauges
+        h2d0 = sum(ar.h2d_bytes for ar in arenas)
+        with g.lock:
+            g0 = (g.net_bytes, g.steal_net, g.cross_steals,
+                  list(g.eval_s), list(g.eval_bytes))
+        n = self._hosts
+        mets: List[Optional[MiningMetrics]] = [None] * n
+        errs: List[Optional[BaseException]] = [None] * n
+
+        def driver(h: int) -> None:
+            try:
+                result_h = dict(singles)
+                frequent_h = sorted(result_h)
+                run = MiningRun(arenas[h], item_counts=item_support,
+                                runtime=self._hruntimes[h], **self._run_kw)
+                # level-1 frequent is global: bill it once (host 0)
+                if h == 0:
+                    run.metrics.frequent += len(frequent_h)
+                try:
+                    mine_more(run, ms, self.max_k, result_h, frequent_h,
+                              delta=plan)
+                finally:
+                    run.close()
+                mets[h] = run.finalize(t0)
+            except BaseException as e:  # noqa: BLE001 - unblock peers
+                errs[h] = e
+                bus.abort()
+
+        threads = [threading.Thread(target=driver, args=(h,),
+                                    name=f"stream-host-{h}")
+                   for h in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if any(e is not None for e in errs):
+            bus.barrier.reset()      # un-break it for the next refresh
+            # the first host's own error, before the peers' broken barriers
+            for e in errs:
+                if e is not None and not isinstance(e, RuntimeError):
+                    raise e
+            raise next(e for e in errs if e is not None)
+        m = _cluster.merge_metrics(mets, g, self._run_kw["granularity"])
+        m.net_bytes -= g0[0]
+        m.steal_net -= g0[1]
+        m.cross_steals -= g0[2]
+        for row in m.per_host:
+            row["eval_s"] -= g0[3][row["host"]]
+            row["eval_bytes"] -= g0[4][row["host"]]
+        m.h2d_bytes = sum(ar.h2d_bytes for ar in arenas) - h2d0
+        return m
+
+    @property
+    def cluster_gauges(self) -> Optional[Dict[str, int]]:
+        """Lifetime interconnect billing (``net_bytes``, ``steal_net``,
+        ``cross_steals``, ``reduced_flushes``); None unless
+        ``hosts > 1``."""
+        if self._hosts < 2:
+            return None
+        return self._bus.gauges.snapshot()
+
     # ------------------------------------------------------ observability --
     @property
     def refresh_lag(self) -> float:
@@ -893,9 +1030,10 @@ class StreamingMiner:
         In-flight query sweeps hold segment ids compaction renumbers, so
         the gate is drained first — briefly, with queries winning: on
         timeout the fold is skipped and the policy re-fires at the next
-        publish. Returns the number of segments removed."""
+        publish. Returns the number of segments removed (always 0 with
+        hosts)."""
         r = self._refreshed_segments
-        if r < 2:
+        if r < 2 or self._hosts > 1:
             return 0
         lead = self.arena.seg_words(0)
         tail = sum(self.arena.seg_words(g) for g in range(1, r))
@@ -916,7 +1054,9 @@ class StreamingMiner:
     def compact_now(self) -> int:
         """Fold every refreshed segment regardless of policy. Returns the
         number of segments removed — 0 if query sweeps stayed in flight
-        past the drain timeout."""
+        past the drain timeout, and always 0 with hosts."""
+        if self._hosts > 1:
+            return 0
         with self._refresh_lock, self._state:
             if not self._gate.wait_idle(5.0):
                 return 0
@@ -929,3 +1069,383 @@ class StreamingMiner:
             return (f"<StreamingMiner gen={self.generation} "
                     f"tx={self.n_transactions} segments={n_seg} "
                     f"pending={pending} known={len(self._known)}>")
+
+
+# ---------------------------------------------------------------------------
+# multi-tenant serving
+# ---------------------------------------------------------------------------
+
+class Tenant:
+    """One stream inside a :class:`TenantHub`: the ingest → refresh →
+    snapshot/serve lifecycle scoped to the tenant's own tagged segment
+    set, sharing the hub's arena and engine runtime with every other
+    tenant. Create it with :meth:`TenantHub.tenant`."""
+
+    def __init__(self, hub: "TenantHub", tid, min_support,
+                 weight: float = 1.0):
+        self.hub = hub
+        self.tid = tid
+        self.weight = float(weight)
+        self.n_items = hub.n_items
+        self.max_k = hub.max_k
+        self.arena = hub.arena
+        self.device = hub.device
+        self._ms_spec = min_support
+        self.n_transactions = 0
+        self.generation = 0
+        self._segments: List[int] = []   # refreshed (mined) segments
+        self._pending: List[int] = []    # ingested, not yet refreshed
+        self._seg_tx: Dict[int, int] = {}
+        self._item_support = np.zeros(hub.n_items, np.int64)
+        self._known: Dict[Itemset, int] = {}
+        self._query_known: Set[Itemset] = set()
+        self._refresh_lock = threading.Lock()
+        self._snapshot = PatternSnapshot(0, 0, self._resolve_ms(0), {},
+                                         device=self.device)
+        self._server: Optional[PatternServer] = None
+        # serving plumbing shared hub-wide (one lock, one gate, one
+        # dispatcher): queries from every tenant coalesce
+        self._state = hub._state
+        self._gate = hub._gate
+        # per-tenant meters
+        self.sweep_bytes = 0             # mining sweeps (refreshes)
+        self.query_sweeps = 0
+        self.query_sweep_bytes = 0
+        self.last_flush_occupancy = 0.0
+        self.latency = LatencyRecorder()
+        self._pending_since: List[float] = []
+
+    # shared serving protocol --------------------------------------------
+    def _ensure_runtime(self) -> EngineRuntime:
+        return self.hub._ensure_runtime()
+
+    def _resolve_ms(self, n_transactions: int) -> int:
+        if isinstance(self._ms_spec, float):
+            return max(1, int(self._ms_spec * n_transactions))
+        return int(self._ms_spec)
+
+    def _query_view(self) -> QueryPlanner:
+        return QueryPlanner(self._snapshot, self._known, self._item_support,
+                            tuple(self._segments))
+
+    def _commit_answers(self, known_ref, updates) -> None:
+        with self._state:
+            if self._known is known_ref:
+                known_ref.update(updates)
+                self._query_known.update(updates)
+
+    def _bill_query(self, n_sweeps: int, nbytes: int) -> None:
+        with self._state:
+            self.query_sweeps += n_sweeps
+            self.query_sweep_bytes += nbytes
+
+    # public surface ------------------------------------------------------
+    @property
+    def snapshot(self) -> PatternSnapshot:
+        return self._snapshot
+
+    @property
+    def needs_refresh(self) -> bool:
+        with self._state:
+            return bool(self._pending)
+
+    @property
+    def server(self) -> PatternServer:
+        if self._server is None:
+            self._server = PatternServer(self)
+        return self._server
+
+    def query_supports(self, itemsets: Sequence[Sequence[int]]
+                       ) -> List[Tuple[int, bool]]:
+        return _serve_queries(self, itemsets)
+
+    def support_many(self, itemsets: Sequence[Sequence[int]]) -> List[int]:
+        return [s for s, _ in self.query_supports(itemsets)]
+
+    def ingest(self, batch: Sequence[Sequence[int]]) -> IngestReport:
+        """Append a batch as one fresh segment TAGGED with this tenant's
+        id: other tenants never sweep it, and arena compaction refuses to
+        fold across the tag."""
+        batch = [list(t) for t in batch]
+        _check_items(batch, self.n_items)
+        t0 = time.perf_counter()
+        seg_bm = pack_database(batch, self.n_items)
+        with self._state:
+            h0 = self.arena.h2d_bytes
+            seg = self.arena.add_segment(seg_bm, tenant=self.tid)
+            self._pending.append(seg)
+            self._pending_since.append(t0)
+            self._seg_tx[seg] = len(batch)
+            self.n_transactions += len(batch)
+            return IngestReport(
+                segment=seg, n_transactions=len(batch),
+                words=seg_bm.shape[1],
+                payload_bytes=self.arena.seg_nbytes(seg),
+                h2d_bytes=self.arena.h2d_bytes - h0,
+                wall_s=time.perf_counter() - t0)
+
+    def refresh(self, before_publish=None) -> RefreshReport:
+        """:meth:`StreamingMiner.refresh` over the tenant's segment set:
+        the delta plan's base is the tenant's refreshed and pending
+        segments (a non-contiguous subset of the shared arena), and every
+        spawned task carries the tenant tag, so the weighted-fair drain
+        rule arbitrates between concurrently refreshing tenants."""
+        with self._refresh_lock:
+            t0 = time.perf_counter()
+            hub, arena = self.hub, self.arena
+            runtime = self._ensure_runtime()
+            with self._state:
+                pending = tuple(self._pending)
+                base_segments = tuple(self._segments) + pending
+                boundary_tx = sum(self._seg_tx[g] for g in base_segments)
+                known = dict(self._known)
+                qk = set(self._query_known)
+            deltas = np.zeros(self.n_items, np.int64)
+            for g in pending:
+                seg = arena.seg_view(g)[:self.n_items]
+                deltas += tidlist.popcount32(seg).sum(axis=1)
+            dirty = frozenset(int(i) for i in np.nonzero(deltas)[0])
+            for x in [x for x in qk if x and all(i in dirty for i in x)]:
+                known.pop(x, None)
+                qk.discard(x)
+            item_support = self._item_support + deltas
+            ms = self._resolve_ms(boundary_tx)
+            prev = self._snapshot.supports
+
+            def hotness(prefix: Itemset) -> float:
+                if len(prefix) == 1:
+                    return float(item_support[prefix[0]])
+                return float(known.get(prefix, 0))
+
+            plan = DeltaPlan(
+                known=known, dirty_items=dirty, segments=pending,
+                base_segments=base_segments,
+                priority_of=hotness if known else None, tenant=self.tid)
+            singles: Dict[Itemset, int] = {
+                (i,): int(s) for i, s in enumerate(item_support) if s >= ms}
+            result = dict(singles)
+            frequent = sorted(result)
+            h2d0 = arena.h2d_bytes
+            run = MiningRun(arena, item_counts=item_support,
+                            runtime=runtime, **hub._run_kw)
+            run.metrics.frequent += len(frequent)
+            try:
+                mine_more(run, ms, self.max_k, result, frequent, delta=plan)
+            finally:
+                run.close()
+            metrics = run.finalize(t0)
+            metrics.h2d_bytes = arena.h2d_bytes - h2d0
+            final = dict(singles)
+            border: Dict[Itemset, int] = {}
+            for x, s in known.items():
+                if len(x) <= self.max_k:
+                    if s >= ms:
+                        final[x] = s
+                    else:
+                        border[x] = s
+            stayed = sum(1 for x in final if x in prev)
+            snapshot = PatternSnapshot(self.generation + 1, boundary_tx, ms,
+                                       final, border=border,
+                                       device=self.device)
+            report = RefreshReport(
+                generation=snapshot.generation, n_transactions=boundary_tx,
+                min_support=ms, frequent=len(final),
+                segments_refreshed=pending, dirty_items=len(dirty),
+                stayed=stayed, born=len(final) - stayed,
+                died=len(prev) - stayed, reused=plan.reused,
+                swept_delta=plan.swept_delta, swept_full=plan.swept_full,
+                rows_touched=metrics.rows_touched,
+                bytes_swept=metrics.bytes_swept,
+                h2d_bytes=metrics.h2d_bytes,
+                wall_s=time.perf_counter() - t0, metrics=metrics)
+            if before_publish is not None:
+                before_publish(snapshot)
+            with self._state:
+                self._item_support = item_support
+                self._known = known
+                self._query_known = qk
+                self._segments = list(base_segments)
+                landed = set(pending)
+                self._pending = [g for g in self._pending
+                                 if g not in landed]
+                del self._pending_since[:len(pending)]
+                self._snapshot = snapshot
+                self.generation = snapshot.generation
+                self.sweep_bytes += metrics.bytes_swept
+                self.last_flush_occupancy = metrics.batch_occupancy
+            report.wall_s = time.perf_counter() - t0
+            return report
+
+    @property
+    def refresh_lag(self) -> float:
+        """Seconds this tenant's oldest unpublished ingest has waited
+        (see :attr:`StreamingMiner.refresh_lag`)."""
+        with self._state:
+            if not self._pending_since:
+                return 0.0
+            return time.perf_counter() - self._pending_since[0]
+
+    def __repr__(self) -> str:   # pragma: no cover - debugging aid
+        with self._state:
+            return (f"<Tenant {self.tid!r} gen={self.generation} "
+                    f"tx={self.n_transactions} "
+                    f"segments={len(self._segments)} "
+                    f"pending={len(self._pending)}>")
+
+
+class TenantHub:
+    """Multi-tenant serving: several independent transaction streams
+    multiplexed onto ONE :class:`BitmapArena` (on ``device``: None means
+    the CUDA card, ``"cpu"`` the kernels' plain versions) and ONE
+    persistent :class:`EngineRuntime`.
+
+    Each :class:`Tenant` owns a disjoint set of arena segments (tagged at
+    ingest, so compaction never folds across tenants), its own
+    min-support spec, known store and published snapshot; refreshes and
+    query sweeps from every tenant share the scheduler workers and the
+    dispatcher, so their sweeps coalesce into the same launches.
+    Fairness: re-mine tasks carry the tenant tag, and the clustered drain
+    rule serves the worker-local tenant with the highest ``weight /
+    (served + 1)`` deficit first — a heavy tenant gets proportionally
+    more engine turns but never starves a light one. Per-tenant meters
+    (queries by kind, sweep bytes, flush occupancy, tasks served) surface
+    through :meth:`tenant_stats`.
+
+    ``mesh`` is the reference's multi-device option, which a later slice
+    of the port brings; here it raises ``NotImplementedError``."""
+
+    def __init__(self, n_items: int, *,
+                 device: "torch.device | str | None" = None,
+                 policy: str = "clustered", n_workers: int = 4,
+                 max_k: int = 6, granularity: str = "bucket",
+                 backend: str = "auto", arena: str = "auto",
+                 cache_size: int = 32, max_batch: int = MAX_BATCH,
+                 flush_us: float = FLUSH_US, mesh=None,
+                 representation: str = "auto"):
+        if mesh is not None:
+            raise NotImplementedError("TenantHub(mesh=) comes with the "
+                                      "port's multi-device slice")
+        if n_items < 1:
+            raise ValueError(f"n_items must be >= 1, got {n_items}")
+        self.device = resolve_device(device)
+        self.n_items = n_items
+        self.max_k = max_k
+        self._run_kw = dict(policy=policy, n_workers=n_workers,
+                            granularity=granularity, backend=backend,
+                            cache_size=cache_size, max_batch=max_batch,
+                            flush_us=flush_us,
+                            representation=representation)
+        # the arena starts with one empty (zero-width) segment; every
+        # real segment arrives tagged through Tenant.ingest
+        self.arena = BitmapArena.from_bitmaps(
+            pack_database([], n_items), device=self.device, backing=arena)
+        self._state = threading.RLock()
+        self._gate = _QueryGate(self._state)
+        self._runtime: Optional[EngineRuntime] = None
+        self._tenants: Dict[Any, Tenant] = {}
+
+    def _ensure_runtime(self) -> EngineRuntime:
+        with self._state:
+            if self._runtime is None:
+                kw = self._run_kw
+                self._runtime = EngineRuntime(
+                    self.arena, policy=kw["policy"],
+                    n_workers=kw["n_workers"],
+                    granularity=kw["granularity"], backend=kw["backend"],
+                    max_batch=kw["max_batch"], flush_us=kw["flush_us"])
+                self._push_weights()
+            return self._runtime
+
+    def _push_weights(self) -> None:
+        # caller holds _state
+        runtime = self._runtime
+        if runtime is None:
+            return      # pushed when the runtime is first built
+        policy = runtime.sched.policy
+        if isinstance(policy, ClusteredPolicy):
+            policy.set_weights(
+                {tid: t.weight for tid, t in self._tenants.items()} or None)
+
+    def tenant(self, tid, min_support=None, *,
+               weight: float = 1.0) -> Tenant:
+        """Register a new tenant stream (``min_support`` required) or
+        fetch an existing one by id."""
+        with self._state:
+            t = self._tenants.get(tid)
+            if t is None:
+                if min_support is None:
+                    raise ValueError("min_support is required when "
+                                     "registering a new tenant")
+                t = Tenant(self, tid, min_support, weight)
+                self._tenants[tid] = t
+                self._push_weights()
+            return t
+
+    @property
+    def tenants(self) -> Tuple[Tenant, ...]:
+        with self._state:
+            return tuple(self._tenants.values())
+
+    def refresh_all(self) -> Dict[Any, RefreshReport]:
+        """Refresh every tenant with pending segments, one after another
+        (callers wanting overlap run per-tenant ``refresh`` from their own
+        threads; the shared runtime arbitrates)."""
+        out = {}
+        for t in self.tenants:
+            if t.needs_refresh or t.generation == 0:
+                out[t.tid] = t.refresh()
+        return out
+
+    def tenant_stats(self) -> Dict[Any, Dict[str, Any]]:
+        """Per-tenant serving and mining meters: generation, stream size,
+        queries served by kind, sweep bytes (mining and query), the last
+        refresh's flush occupancy, scheduler tasks served under the
+        fairness rule, and the configured weight."""
+        with self._state:
+            served: Dict[Any, int] = {}
+            if self._runtime is not None and isinstance(
+                    self._runtime.sched.policy, ClusteredPolicy):
+                served = self._runtime.sched.policy.tenant_served()
+            out: Dict[Any, Dict[str, Any]] = {}
+            for tid, t in self._tenants.items():
+                q = (t._server.merged_stats() if t._server is not None
+                     else obs_schema.query_stats({}))
+                out[tid] = {
+                    "generation": t.generation,
+                    "transactions": t.n_transactions,
+                    "segments": len(t._segments) + len(t._pending),
+                    "frequent": len(t._snapshot.supports),
+                    "weight": t.weight,
+                    "tasks_served": int(served.get(tid, 0)),
+                    "sweep_bytes": t.sweep_bytes,
+                    "query_sweeps": t.query_sweeps,
+                    "query_sweep_bytes": t.query_sweep_bytes,
+                    "flush_occupancy": t.last_flush_occupancy,
+                    "queries": q,
+                }
+            return out
+
+    def close(self) -> None:
+        """Shut down the shared runtime; snapshots keep serving."""
+        with self._state:
+            runtime, self._runtime = self._runtime, None
+        if runtime is not None:
+            runtime.shutdown()
+
+    def __enter__(self) -> "TenantHub":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __del__(self):   # pragma: no cover - gc-timing dependent
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 - interpreter teardown
+            pass
+
+    def __repr__(self) -> str:   # pragma: no cover - debugging aid
+        with self._state:
+            return (f"<TenantHub items={self.n_items} "
+                    f"tenants={len(self._tenants)} "
+                    f"segments={self.arena.n_segments}>")

@@ -215,6 +215,30 @@ def sorted_difference(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return a[b[idx] != a]
 
 
+def partition_words(n_words_: int, n_hosts: int) -> List[Tuple[int, int]]:
+    """Contiguous balanced word ranges ``[(w0, w1), ...]`` over the
+    transaction axis, one per host.
+
+    Multi-host mining slices the packed ``[n_items, W]`` database on the
+    word (= 32-transaction block) axis: host ``h`` builds its local
+    :class:`BitmapArena` from ``bitmaps[:, w0:w1]`` and sweeps only those
+    columns. Word granularity keeps every host's slice a plain view with
+    no bit surgery, and the remainder is spread over the leading hosts so
+    slice widths differ by at most one word. Hosts beyond ``n_words_``
+    get empty ``(w, w)`` ranges — legal, the backends skip zero-width
+    segments."""
+    if n_hosts < 1:
+        raise ValueError(f"n_hosts must be >= 1, got {n_hosts}")
+    base, extra = divmod(n_words_, n_hosts)
+    ranges: List[Tuple[int, int]] = []
+    w = 0
+    for h in range(n_hosts):
+        width = base + (1 if h < extra else 0)
+        ranges.append((w, w + width))
+        w += width
+    return ranges
+
+
 # ---------------------------------------------------------------------------
 # BitmapArena: the home of every TID bitmap, with a device mirror
 # ---------------------------------------------------------------------------
@@ -288,9 +312,11 @@ class BitmapArena:
     alike, and accept only ``shard=0``.
 
     Thread-safe: workers push/release concurrently; the mirrors are
-    touched only by the dispatcher thread. Growth reallocates the host
-    stores, but handed-out row views keep the old buffer alive and live
-    rows are never mutated, so views stay content-correct.
+    synced by the dispatcher thread and, in a multi-host run, by the
+    peers that evaluate flushes on this slice, one sync at a time.
+    Growth reallocates the host stores, but handed-out row views keep the
+    old buffer alive and live rows are never mutated, so views stay
+    content-correct.
     """
 
     GROW = 2                      # capacity doubling factor
@@ -334,6 +360,10 @@ class BitmapArena:
         self._mirrors: Dict[int, torch.Tensor] = {}
         self._dev_n: Dict[int, int] = {}
         self._stale: Dict[int, set] = {}
+        # one mirror sync at a time: a cluster peer evaluates descriptor
+        # flushes on this arena from its own thread while this host's
+        # dispatcher syncs it
+        self._sync_lock = threading.Lock()
         self.h2d_bytes = 0            # bitmap payload uploaded, total
         self.compaction_bytes = 0     # host bytes repacked by compact()
         self.compactions = 0          # compact() calls that merged
@@ -874,9 +904,9 @@ class BitmapArena:
 
     def device_rows(self, segment: int = 0) -> Optional[torch.Tensor]:
         """Segment ``segment``'s device mirror ``[n_rows,
-        seg_mirror_words]`` int32, synced incrementally (only the
-        dispatcher thread calls this); None for a host-only ("numpy")
-        backing.
+        seg_mirror_words]`` int32, synced incrementally (the dispatcher
+        thread calls this, and a cluster peer's evaluator); None for a
+        host-only ("numpy") backing.
 
         Rows new to this mirror and its recycled slots are written; a
         live word-column row covering the segment is billed ``4 *
@@ -885,9 +915,14 @@ class BitmapArena:
         appended segment g uploads ``seg_nbytes(g)`` and never the older
         segments. Each mirror is ONE capacity-doubling buffer updated in
         place with ``index_copy_``: a sync moves only the changed rows,
-        where a functional update would copy the whole mirror."""
+        where a functional update would copy the whole mirror. Syncs
+        serialize on one lock."""
         if not self.device_enabled:
             return None
+        with self._sync_lock:
+            return self._sync(segment)
+
+    def _sync(self, segment: int) -> torch.Tensor:
         tr = self.tracer
         t_sync = time.perf_counter() if tr is not None else 0.0
         w = self._seg_words[segment]

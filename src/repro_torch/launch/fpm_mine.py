@@ -14,6 +14,11 @@ Example (streaming refresh and query serving on the card):
     PYTHONPATH=src python -m repro_torch.launch.fpm_mine --dataset t10i4 \
         --stream 2 --serve 64 --max-k 8
 
+Example (two rank processes, each mining its word slice on the one card,
+reducing every flush through a TCPStore this process hosts):
+    PYTHONPATH=src python -m repro_torch.launch.fpm_mine --dataset t10i4 \
+        --hosts 2 --max-k 8
+
 The mines run on the CUDA card unless ``--device cpu`` is given; without
 a card and without ``--device`` the launcher raises ``RuntimeError``
 before it builds any data.
@@ -22,7 +27,12 @@ from __future__ import annotations
 
 import argparse
 import itertools
+import json
+import os
+import subprocess
+import sys
 import time
+from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
@@ -35,9 +45,9 @@ from repro_torch.core.tidlist import (ARENA_BACKINGS, pack_database,
 from repro_torch.data.transactions import PROFILES, load
 from repro_torch.obs import Tracer, summary_table, write_chrome_trace
 
-# flags of the reference launcher whose modes later slices of the port
-# bring, and the slice that brings each
-LATER_SLICES = {"mesh": "multi-device", "hosts": "cluster"}
+# the flag of the reference launcher whose mode a later slice of the
+# port brings, and that slice
+LATER_SLICES = {"mesh": "multi-device"}
 
 
 def _finish_trace(args, tracer, wall_s: float) -> None:
@@ -118,11 +128,98 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "each kind (known-hit, batched unknown-itemset "
                          "sweep, top-k) through the PatternServer and "
                          "print per-kind p50/p95/p99 (with --stream)")
+    ap.add_argument("--hosts", type=int, default=0, metavar="N",
+                    help="multi-host mode: spawn N rank processes, each "
+                         "owning a word slice of the transaction axis on "
+                         "--device, with two-phase support counting "
+                         "(local partial counts + per-flush reduction "
+                         "through a TCPStore this process hosts). 0 = "
+                         "single process")
+    # child-rank plumbing for --hosts (set by the parent, not by hand)
+    ap.add_argument("--_rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--_nprocs", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--_coordinator", default=None,
+                    help=argparse.SUPPRESS)
     for flag, slice_ in LATER_SLICES.items():
         ap.add_argument(f"--{flag}", type=int, default=0, metavar="N",
                         help=f"the reference launcher's {flag} mode; the "
                              f"port's {slice_} slice brings it")
     return ap.parse_args(argv)
+
+
+def _spawn_hosts(args) -> None:
+    """Parent of a ``--hosts N`` run: host a TCPStore on a free local
+    port, spawn one rank process per host on ``--device``, then print
+    rank 0's report and every other rank's lines (prefixed with its
+    rank), and fail on the first rank that exited non-zero."""
+    from torch.distributed import TCPStore
+    if args.stream:
+        raise SystemExit("--hosts and --stream are mutually exclusive "
+                         "(use StreamingMiner(hosts=N) for multi-host "
+                         "streaming)")
+    store = TCPStore("127.0.0.1", 0, is_master=True,
+                     wait_for_workers=False)
+    coord = f"127.0.0.1:{store.port}"
+    base = [sys.executable, "-m", "repro_torch.launch.fpm_mine",
+            "--dataset", args.dataset, "--workers", str(args.workers),
+            "--policies", args.policies[0],
+            "--granularity", args.granularity, "--backend", args.backend,
+            "--max-batch", str(args.max_batch),
+            "--flush-us", str(args.flush_us), "--max-k", str(args.max_k),
+            "--seed", str(args.seed), "--_coordinator", coord,
+            "--_nprocs", str(args.hosts)]
+    if args.support is not None:
+        base += ["--support", str(args.support)]
+    if args.device is not None:
+        base += ["--device", args.device]
+    # the ranks import this package from where this process found it
+    src = str(Path(__file__).resolve().parents[2])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    print(f"hosts: spawning {args.hosts} ranks @ {coord} (TCPStore, "
+          f"device={args.device or 'cuda'})", flush=True)
+    procs = [subprocess.Popen(base + ["--_rank", str(r)], env=env,
+                              stdout=subprocess.PIPE, text=True)
+             for r in range(args.hosts)]
+    outs = [p.communicate()[0] for p in procs]
+    for r, out in enumerate(outs):
+        for line in out.splitlines():
+            print(line if r == 0 else f"rank {r}: {line}")
+    for r, p in enumerate(procs):
+        if p.returncode:
+            raise SystemExit(f"rank {r} exited with {p.returncode}")
+    del store
+
+
+def _rank(args, bitmaps, ms, device) -> None:
+    """One rank of a ``--hosts`` run: mine this rank's word slice with
+    the store transport and print its kernel launches; rank 0 also
+    checks the result against ``mine_serial`` and prints the result
+    line."""
+    from repro_torch.core.cluster import mine_distributed_process
+    from repro_torch.kernels.bitmap_join import ops as bj
+    from repro_torch.kernels.gather_intersect import ops as gi
+    res, met = mine_distributed_process(
+        bitmaps, ms, rank=args._rank, n_procs=args._nprocs,
+        coordinator=args._coordinator, device=device, serve_store=False,
+        policy=args.policies[0], n_workers=args.workers, max_k=args.max_k,
+        granularity=args.granularity, backend=args.backend,
+        max_batch=args.max_batch, flush_us=args.flush_us)
+    print("launches: " + json.dumps({"bitmap_join_many": bj.launches,
+                                     "gather_intersect_many": gi.launches}))
+    if args._rank != 0:
+        return
+    if res != mine_serial(bitmaps, ms, max_k=args.max_k):
+        raise SystemExit("hosts result differs from mine_serial")
+    s = met.scheduler
+    print(f"{args.policies[0]:10s} hosts={met.n_hosts} "
+          f"wall={met.wall_s:6.2f}s frequent={len(res)} "
+          f"steals={int(s.get('steals', 0)):6d} "
+          f"net={met.net_bytes}B steal_net={met.steal_net}B "
+          f"flushes={met.flushes} batch_occ={met.batch_occupancy:4.2f}; "
+          f"equals mine_serial")
 
 
 def _stream(args, db, n_items, ms, ref, device, tracer) -> None:
@@ -209,11 +306,13 @@ def _serve(args, srv, sm, top, n_items: int) -> None:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
     for flag, slice_ in LATER_SLICES.items():
-        # as in the reference launcher, --hosts 1 is one process
-        if getattr(args, flag) > (1 if flag == "hosts" else 0):
+        if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag} comes with the port's {slice_} slice")
     device = resolve_device(args.device)
+    # as in the reference launcher, --hosts 1 is one process
+    if args.hosts >= 2 and args._rank is None:
+        return _spawn_hosts(args)
 
     db, prof = load(args.dataset, args.seed)
     n_items = (prof.n_dense_items if prof.kind == "dense"
@@ -223,6 +322,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ms = max(1, int(frac * len(db)))
     print(f"dataset=synth:{args.dataset} |D|={len(db)} items={n_items} "
           f"min_support={ms} ({frac:.4f}) device={device}")
+    if args._rank is not None:
+        _rank(args, bitmaps, ms, device)
+        return
 
     t0 = time.time()
     ref = mine_serial(bitmaps, ms, max_k=args.max_k)

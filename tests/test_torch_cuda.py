@@ -410,3 +410,82 @@ def test_top_k_on_card_equals_host_on_ties(cuda, monkeypatch, prefix, k):
     assert snap.top_k(prefix, k) == host
     if len(prefix) < 3:
         assert snap._index._dev[0].is_cuda
+
+
+def _peer_slice(dev):
+    """A segmented slice (widths 37, 0 and 5 words) on ``dev`` and on the
+    host, with its words."""
+    from repro_torch.core.tidlist import BitmapArena
+    segs = [RNG.integers(0, 2 ** 32, size=(24, w), dtype=np.uint32)
+            for w in (37, 0, 5)]
+    arena = BitmapArena.from_bitmaps(segs[0], device=dev)
+    for s in segs[1:]:
+        arena.add_segment(s)
+    return arena
+
+
+def test_peer_evaluation_on_card_equals_host_evaluation(cuda):
+    """Descriptor flushes with prefix tuples of 1 to 5 items and segment
+    subsets, counted on a peer slice's mirror through the kernel backend
+    (tuple-prefix launches of ``bitmap_join_many``), equal the host
+    evaluation of the same slice."""
+    from repro_torch.core import cluster
+    arena = _peer_slice(cuda)
+    descs = []
+    for i in range(40):
+        d = tuple(sorted(RNG.choice(24, size=1 + i % 5,
+                                    replace=False).tolist()))
+        e = tuple(RNG.choice(24, size=int(RNG.integers(1, 9)),
+                             replace=False).tolist())
+        descs.append((d, e, [None, (0,), (1, 2), (0, 1, 2), (2,)][i % 5]))
+    n0 = bj.launches
+    got = cluster._PeerEval(arena, "torch")(descs)
+    assert bj.launches > n0
+    want = cluster._eval_descs(arena, descs, {})
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+def _small_txns(n_tx):
+    rng = np.random.default_rng(1)
+    return [sorted(rng.choice(40, size=rng.integers(1, 8),
+                              replace=False).tolist()) for _ in range(n_tx)]
+
+
+@pytest.mark.parametrize("granularity", ["bucket", "depth-first"])
+def test_cluster_mine_on_card_matches_serial(cuda, granularity):
+    bm, _ = _small_db()
+    ms = 120
+    want = repro_torch.mine_serial(bm, ms, max_k=4)
+    n0 = bj.launches
+    got, met = repro_torch.mine(bm, ms, hosts=2, max_k=4,
+                                granularity=granularity)
+    assert got == want
+    assert met.n_hosts == 2 and met.net_bytes > 0
+    assert bj.launches > n0
+
+
+def test_streaming_cluster_and_tenants_on_card(cuda):
+    db = _small_txns(3000)
+    ms = 90
+    sm = repro_torch.StreamingMiner(40, ms, initial_db=db[:2000], hosts=2,
+                                    max_k=3, arena="jax")
+    try:
+        sm.refresh()
+        for lo in (2000, 2500):
+            ing = sm.ingest(db[lo:lo + 500])
+            assert ing.h2d_bytes == ing.payload_bytes
+            sm.refresh()
+        want = repro_torch.mine_serial(pack_database(db, 40), ms, max_k=3)
+        assert dict(sm.snapshot.supports) == want
+    finally:
+        sm.close()
+    with repro_torch.TenantHub(40, max_k=3) as hub:
+        ta, tb = hub.tenant("a", 40, weight=4.0), hub.tenant("b", 40)
+        ta.ingest(db[:1500])
+        tb.ingest(db[1500:])
+        hub.refresh_all()
+        assert dict(ta.snapshot.supports) == repro_torch.mine_serial(
+            pack_database(db[:1500], 40), 40, max_k=3)
+        assert dict(tb.snapshot.supports) == repro_torch.mine_serial(
+            pack_database(db[1500:], 40), 40, max_k=3)

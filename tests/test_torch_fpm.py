@@ -1,7 +1,7 @@
 """The port's batch mining end to end against the reference engine on
 the same inputs — supports and every deterministic gauge, at bucket,
 candidate, depth-first and auto granularity — plus the device rule, the
-options a later slice covers, and the rule that the port imports neither
+option a later slice covers, and the rule that the port imports neither
 JAX nor the reference package."""
 import ast
 import itertools
@@ -17,9 +17,10 @@ from repro.core import tidlist as rtl
 from repro.core.streaming import StreamingMiner as RStreamingMiner
 from repro_torch.core import fpm as tfpm
 from repro_torch.core import join_backend as tjb
-from repro_torch.core.streaming import StreamingMiner
+from repro_torch.core.streaming import StreamingMiner, TenantHub
 from repro_torch.core.tidlist import BitmapArena, pack_database
 from repro_torch.data import transactions as tt
+from repro_torch.launch import fpm_mine
 
 ROOT = Path(__file__).resolve().parents[1]
 GAUGES = ("rows_touched", "bytes_swept", "dense_sweeps", "sparse_sweeps",
@@ -239,20 +240,27 @@ def test_mine_without_device_raises_when_no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": 2}, {"hosts": 2}, {"stream_mesh": 2}])
+    {"mesh": 2}, {"hosts": 2, "mesh": 2}, {"stream_mesh": 2},
+    {"hub_mesh": 2}, {"launcher_mesh": 2}])
 def test_later_slices_raise_not_implemented(kwargs):
-    """Meshes and multi-host runs wait for later slices, for a batch
-    mine and for a streaming miner alike (``mine_more(delta=)`` runs
-    since the streaming slice: see the test below)."""
+    """Meshes wait for a later slice: a batch mine (also with hosts, which
+    run since the cluster slice), a streaming miner, a tenant hub and the
+    launcher's --mesh all raise."""
     bm = np.ones((3, 2), np.uint32)
-    if "stream_mesh" not in kwargs:
-        with pytest.raises(NotImplementedError):
+    if "stream_mesh" in kwargs:
+        for hosts in (1, 2):
+            with pytest.raises(NotImplementedError, match="multi-device"):
+                StreamingMiner(3, 1, device="cpu", mesh=2, hosts=hosts)
+    elif "hub_mesh" in kwargs:
+        with pytest.raises(NotImplementedError, match="multi-device"):
+            TenantHub(3, device="cpu", mesh=2)
+    elif "launcher_mesh" in kwargs:
+        with pytest.raises(NotImplementedError, match="multi-device"):
+            fpm_mine.main(["--dataset", "chess", "--device", "cpu",
+                           "--mesh", "2"])
+    else:
+        with pytest.raises(NotImplementedError, match="multi-device"):
             tfpm.mine(bm, 1, device="cpu", **kwargs)
-        return
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        StreamingMiner(3, 1, device="cpu", mesh=2)
-    with pytest.raises(NotImplementedError, match="cluster"):
-        StreamingMiner(3, 1, device="cpu", hosts=2)
 
 
 @pytest.mark.parametrize("granularity", ["bucket", "depth-first"])
@@ -336,6 +344,7 @@ def test_port_imports_neither_jax_nor_reference():
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "_index_cases.py",
               *sorted((ROOT / "tools").glob("*.py"))]
     assert len(files) > 10
+    assert ROOT / "src" / "repro_torch" / "core" / "cluster.py" in files
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"

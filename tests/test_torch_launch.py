@@ -1,7 +1,8 @@
 """The port's launcher against the reference's: the same dataset and
-policies give the same frequent-itemset counts, ``--trace`` writes a
-loadable Chrome trace, the flags of later slices raise, and without a
-card the launcher refuses to start unless ``--device cpu`` is given."""
+policies give the same frequent-itemset counts (also with ``--hosts 2``,
+two rank processes over a TCPStore), ``--trace`` writes a loadable
+Chrome trace, the flag of a later slice raises, and without a card the
+launcher refuses to start unless ``--device cpu`` is given."""
 import json
 import os
 import re
@@ -63,11 +64,47 @@ def test_launcher_trace_writes_chrome_json(tmp_path, capsys):
 @pytest.mark.parametrize("flag", ["--mesh", "--hosts", "--stream",
                                   "--serve"])
 def test_later_slice_flags_raise_not_implemented(flag):
-    """--mesh and --hosts wait for later slices; --stream and --serve run
-    since the streaming slice (see below), but not over a mesh."""
-    extra = ["--mesh", "2"] if flag in ("--stream", "--serve") else []
+    """--mesh waits for a later slice; --hosts (since the cluster slice,
+    see below), --stream and --serve run, but not over a mesh."""
+    extra = ["--mesh", "2"] if flag != "--mesh" else []
     with pytest.raises(NotImplementedError, match="slice"):
         tlaunch.main([*SMALL, "--device", "cpu", flag, "2", *extra])
+
+
+def _hosts_line(out):
+    m = re.search(r"^(\w+)\s+hosts=(\d+) wall=.* frequent=(\d+) .* net=(\d+)B",
+                  out, re.M)
+    return m.group(1), int(m.group(2)), int(m.group(3)), int(m.group(4))
+
+
+@pytest.mark.timeout(120)
+def test_launcher_hosts_reproduce_reference_result_line(monkeypatch, capfd):
+    """--hosts 2: the parent hosts a TCPStore and spawns two rank
+    processes; rank 0's result line names the reference's policy, host
+    count and frequent count (the reference's own --hosts run over
+    jax.distributed), rank 0 checked it against ``mine_serial``, and
+    each rank reported its kernel launches."""
+    args = [*SMALL, "--hosts", "2"]
+    monkeypatch.setattr(sys, "argv", ["fpm_mine", *args])
+    rlaunch.main()          # its rank 0 writes to the inherited stdout
+    want = capfd.readouterr().out
+    tlaunch.main([*args, "--device", "cpu"])
+    got = capfd.readouterr().out
+    policy, hosts, frequent, net = _hosts_line(got)
+    assert (policy, hosts, frequent) == _hosts_line(want)[:3]
+    assert hosts == 2 and frequent > 0 and net > 0
+    assert "equals mine_serial" in got
+    launches = re.findall(r"^(rank 1: )?launches: (\{.*\})$", got, re.M)
+    assert [r for r, _ in launches] == ["", "rank 1: "]
+    assert all(set(json.loads(j)) == {"bitmap_join_many",
+                                      "gather_intersect_many"}
+               for _, j in launches)
+
+
+def test_launcher_hosts_refuse_stream():
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        tlaunch.main([*SMALL, "--device", "cpu", "--hosts", "2",
+                      "--stream", "2"])
 
 
 STREAM_KEYS = ("reused", "delta", "full", "born", "died")

@@ -5,8 +5,8 @@ unknown-itemset sweeps, snapshot consistency across a publish, the
 backfill, the negative border, host and device top-k (tie-heavy cases
 included), and per-kind server counters.
 
-Not ported from ``tests/test_serving.py``: the two multi-tenant cases,
-which come with the port's ``TenantHub``."""
+The two multi-tenant cases of ``tests/test_serving.py`` are ported in
+``tests/test_torch_tenants.py``."""
 import itertools
 import threading
 
