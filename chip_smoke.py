@@ -1141,76 +1141,88 @@ def log_cluster(label, wall, met, extra=""):
         f"{extra}[{hosts}]")
 
 
-def phase_cluster(dev, bitmaps, counts, min_support, serial, bitmap_met):
-    """Phase 15: the multi-host mine on the card, the launch counts set
-    to 0 just before and read just after: ``repro_torch.mine(hosts=2)``
-    at bucket grain and max_k=8 (supports equal ``mine_serial``, one
-    reduction per flush, bytes on the interconnect, ``bitmap_join_many``
-    launched on both hosts' mirrors by their own flushes and by peer
-    evaluations with tuple prefixes), then at max_k=4 three hosts,
-    depth-first grain and a forced cross-host steal. Returns the
-    launches."""
-    import repro_torch
-    from repro_torch.core import cluster
-    want4 = {c: v for c, v in serial.items() if len(c) <= BITMAP_MAX_K}
+def spied(run):
+    """``run()`` with the backend's kernel entries (``EntrySpy``) and the
+    cluster's hooks (``HostSpy``) spied on, the launch counts set to 0
+    just before and read just after. Returns ``run()``'s result, its
+    wall, the launches and both spies."""
     with EntrySpy() as spy, HostSpy() as hosts:
         reset_launches()
         t0 = time.perf_counter()
-        result, met = repro_torch.mine(
-            bitmaps, min_support, device=dev, hosts=2, granularity="bucket",
-            policy="clustered", max_k=MAIN_MAX_K, item_counts=counts)
+        out = run()
         wall = time.perf_counter() - t0
-        if result != serial:
-            raise SystemExit("cluster: supports differ from mine_serial")
-        g = hosts.gauges.snapshot()
-        if g["reduced_flushes"] != met.flushes or met.net_bytes <= 0:
-            raise SystemExit(f"cluster: {g['reduced_flushes']} reductions "
-                             f"for {met.flushes} flushes, net_bytes "
-                             f"{met.net_bytes}")
-        per_role = hosts.check_hosts("cluster", 2)
-        log_cluster(f"cluster mine[hosts=2, bucket, max_k={MAIN_MAX_K}]",
-                    wall, met, f"reduced_flushes={g['reduced_flushes']} "
-                    f"bitmap_join_many per host mirror {per_role} ")
-        log(f"  against phase 4 (one host, bitmap, max_k={BITMAP_MAX_K}): "
-            f"wall_s={bitmap_met.wall_s:.3f} flushes={bitmap_met.flushes} "
-            f"occupancy={bitmap_met.batch_occupancy:.2f}; "
-            f"supports==mine_serial ok")
-        runs = [("hosts=3, bucket", dict(hosts=3)),
-                ("hosts=2, depth-first", dict(hosts=2,
-                                              granularity="depth-first")),
-                ("hosts=2, bucket, every bucket on host 0",
-                 dict(hosts=2, owner_fn=lambda key: 0))]
-        for label, kw in runs:
-            for attempt in range(3):
-                t0 = time.perf_counter()
-                result, met = cluster.mine_cluster(
-                    bitmaps, min_support, device=dev, policy="clustered",
-                    max_k=BITMAP_MAX_K, item_counts=counts,
-                    **{"granularity": "bucket", **kw})
-                wall = time.perf_counter() - t0
-                if result != want4:
-                    raise SystemExit(f"cluster[{label}]: supports differ "
-                                     f"from mine_serial")
-                if "owner_fn" not in kw or met.cross_steals > 0:
-                    break
-                log(f"  cluster[{label}]: no cross-host steal in attempt "
-                    f"{attempt + 1}; again")
-            if "owner_fn" in kw and not (met.cross_steals > 0
-                                         and met.steal_net > 0):
-                raise SystemExit(f"cluster[{label}]: no cross-host steal "
-                                 f"in 3 runs")
-            per_role = hosts.check_hosts(f"cluster[{label}]", kw["hosts"],
-                                         one_owner="owner_fn" in kw)
-            log_cluster(f"cluster mine[{label}, max_k={BITMAP_MAX_K}]", wall,
-                        met, f"bitmap_join_many per host mirror {per_role} ")
         launches = counted_launches()
-    spy.check_route("cluster", launches, 0, indexed=True)
-    log(f"cluster: launches={json.dumps(launches)}, all through the indexed "
-        f"entries; tuple shapes (B', L, E', W_seg): "
-        f"{dict(spy.tuple_shapes.most_common(6))}")
-    spy.hold("cluster")
-    hosts.hold("cluster")
-    return launches
+    return out, wall, launches, spy, hosts
+
+
+def phase_cluster(dev, bitmaps, counts, min_support, serial, bitmap_met):
+    """Phase 15: the multi-host mine on the card, four runs, each with
+    the launch counts set to 0 just before it and read just after it:
+    ``repro_torch.mine(hosts=2)`` at bucket grain and max_k=8 (supports
+    equal ``mine_serial``, one reduction per flush, bytes on the
+    interconnect, ``bitmap_join_many`` launched on both hosts' mirrors
+    by their own flushes and by peer evaluations with tuple prefixes),
+    then at max_k=4 three hosts, depth-first grain and a forced
+    cross-host steal (of up to three attempts, only the one kept is
+    counted). Returns the launches of each run, by column."""
+    import repro_torch
+    from repro_torch.core import cluster
+    want4 = {c: v for c, v in serial.items() if len(c) <= BITMAP_MAX_K}
+    runs = [
+        ("cluster", "hosts=2, bucket", MAIN_MAX_K, dict(hosts=2)),
+        ("cluster-3", "hosts=3, bucket", BITMAP_MAX_K, dict(hosts=3)),
+        ("cluster-depth-first", "hosts=2, depth-first", BITMAP_MAX_K,
+         dict(hosts=2, granularity="depth-first")),
+        ("cluster-steal", "hosts=2, bucket, every bucket on host 0",
+         BITMAP_MAX_K, dict(hosts=2, owner_fn=lambda key: 0)),
+    ]
+    columns = {}
+    for column, label, max_k, kw in runs:
+        steal = "owner_fn" in kw
+        entry = repro_torch.mine if column == "cluster" else (
+            cluster.mine_cluster)
+        for attempt in range(3):
+            (result, met), wall, launches, spy, hosts = spied(
+                lambda: entry(bitmaps, min_support, device=dev,
+                              policy="clustered", max_k=max_k,
+                              item_counts=counts,
+                              **{"granularity": "bucket", **kw}))
+            if not steal or met.cross_steals > 0:
+                break
+            log(f"  cluster[{label}]: no cross-host steal in attempt "
+                f"{attempt + 1}; again")
+        if result != (serial if max_k == MAIN_MAX_K else want4):
+            raise SystemExit(f"cluster[{label}]: supports differ from "
+                             f"mine_serial")
+        if steal and not (met.cross_steals > 0 and met.steal_net > 0):
+            raise SystemExit(f"cluster[{label}]: no cross-host steal in "
+                             f"3 runs")
+        g = hosts.gauges.snapshot()
+        extra = ""
+        if column == "cluster":
+            if g["reduced_flushes"] != met.flushes or met.net_bytes <= 0:
+                raise SystemExit(f"cluster: {g['reduced_flushes']} "
+                                 f"reductions for {met.flushes} flushes, "
+                                 f"net_bytes {met.net_bytes}")
+            extra = f"reduced_flushes={g['reduced_flushes']} "
+        per_role = hosts.check_hosts(f"cluster[{label}]", kw["hosts"],
+                                     one_owner=steal)
+        spy.check_route(f"cluster[{label}]", launches, 0, indexed=True)
+        log_cluster(f"cluster mine[{label}, max_k={max_k}]", wall, met,
+                    f"{extra}bitmap_join_many per host mirror {per_role} ")
+        log(f"  cluster[{label}]: launches={json.dumps(launches)}, all "
+            f"through the indexed entries; tuple shapes (B', L, E', "
+            f"W_seg): {dict(spy.tuple_shapes.most_common(4))}")
+        if column == "cluster":
+            log(f"  against phase 4 (one host, bitmap, max_k="
+                f"{BITMAP_MAX_K}): wall_s={bitmap_met.wall_s:.3f} "
+                f"flushes={bitmap_met.flushes} "
+                f"occupancy={bitmap_met.batch_occupancy:.2f}; "
+                f"supports==mine_serial ok")
+            hosts.hold("cluster")
+        spy.hold(f"cluster[{label}]")
+        columns[column] = launches
+    return columns
 
 
 def phase_cluster_stream(dev, db, n_items, min_support, serial):
@@ -1445,6 +1457,32 @@ def phase_hosts():
                 for k in ("bitmap_join_many", "gather_intersect_many")}
     log(f"hosts: 2 ranks on the card in {wall:.1f} s (the launcher's wall, "
         f"process start included); launches per rank {ranks}")
+    return launches
+
+
+def phase_hosts_loopback(dev):
+    """Phase 18's twin in one process: ``repro_torch.mine(hosts=2)`` on
+    the launcher's own data (``t10i4`` at its 20,000 transactions, seed
+    0) with the launcher's settings, the launch counts set to 0 just
+    before and read just after, so that rank 0's wall stands beside a
+    loopback mine of the same work. Returns the launches."""
+    import repro_torch
+    from repro_torch.core.fpm import mine_serial
+    from repro_torch.core.tidlist import pack_database
+    from repro_torch.data.transactions import load
+    db, prof = load("t10i4", 0)
+    bitmaps, counts = pack_database(db, prof.n_items, return_counts=True)
+    ms = max(1, int(prof.support * len(db)))
+    (result, met), wall, launches, spy, _ = spied(
+        lambda: repro_torch.mine(bitmaps, ms, device=dev, hosts=2,
+                                 policy="clustered", max_k=MAIN_MAX_K,
+                                 item_counts=counts))
+    if result != mine_serial(bitmaps, ms, max_k=MAIN_MAX_K):
+        raise SystemExit("hosts-loopback: supports differ from mine_serial")
+    spy.check_route("hosts-loopback", launches, 0, indexed=True)
+    log_cluster(f"hosts-loopback: mine[hosts=2, bucket, max_k={MAIN_MAX_K}] "
+                f"on the launcher's {len(db)} transactions", wall, met,
+                f"launches={json.dumps(launches)} ")
     return launches
 
 
@@ -1823,12 +1861,14 @@ def main() -> int:
     sm.close()
     note("stream-depth-first", got)
     note("launcher-stream", phase_launcher_stream())
-    note("cluster", phase_cluster(dev, bitmaps, counts, min_support, serial,
-                                  bitmap_met))
+    for column, got in phase_cluster(dev, bitmaps, counts, min_support,
+                                     serial, bitmap_met).items():
+        note(column, got)
     note("cluster-stream", phase_cluster_stream(dev, db, prof.n_items,
                                                 min_support, serial))
     note("tenants", phase_tenants(dev, db, prof.n_items, min_support))
     note("hosts", phase_hosts())
+    note("hosts-loopback", phase_hosts_loopback(dev))
 
     for granularity, representation, max_k in (
             ("bucket", "auto", MAIN_MAX_K),

@@ -17,12 +17,12 @@ as the kernel launches do. Counts are integer sums of disjoint word
 ranges, so results are bit-identical to a single-host ``mine()``.
 
 A peer evaluates a descriptor flush with a backend of the host's kind on
-its own slice. The kernel backend turns each descriptor into a
-tuple-prefix sweep request: the prefix items are base rows of the
-slice, so ``bitmap_join_many`` ANDs the tuple itself and counts the
-extensions in one launch per segment, on the slice's device mirror (on
-a CPU arena, its plain version). The host backend runs the reference's
-numpy evaluation, with its per-(prefix, segment) memo.
+its own slice: each descriptor becomes a tuple-prefix sweep request.
+The prefix items are base rows of the slice, so the kernel backend's
+``bitmap_join_many`` ANDs the tuple itself and counts the extensions in
+one launch per segment, on the slice's device mirror (on a CPU arena,
+its plain version); the host backend ANDs and counts the same requests
+in numpy.
 
 Task partition rides on :func:`stable_hash`: every driver generates the
 full candidate frontier but spawns only the buckets it OWNS
@@ -140,45 +140,6 @@ def _eval_rows_bytes(descs, arena: BitmapArena) -> int:
     return total
 
 
-# bound on memoized prefix rows per peer slice of the host evaluation
-# (FIFO eviction)
-_PCACHE_CAP = 512
-
-
-def _eval_descs(arena: BitmapArena, descs,
-                cache: Dict[Any, np.ndarray]) -> List[np.ndarray]:
-    """The host evaluation of a descriptor flush on ``arena``'s slice:
-    gather the extension rows, AND with the prefix row, fused popcount.
-    The prefix AND-reduction is memoized per (prefix, segment), so a hot
-    prefix costs one [E, w] pass instead of re-reducing its k base rows
-    on every flush. Counts are exact integer partials over the local
-    words."""
-    out: List[np.ndarray] = []
-    for d, e, segs in descs:
-        gs = range(arena.n_segments) if segs is None else segs
-        total = np.zeros(len(e), np.int64)
-        for g in gs:
-            if not arena.seg_words(g):
-                continue
-            rows = arena.seg_view(g)
-            key = (d, g)
-            pr = cache.get(key)
-            if pr is None:
-                pr = rows[d[0]]
-                for i in d[1:]:
-                    pr = pr & rows[i]
-                if len(cache) >= _PCACHE_CAP:
-                    # workers of one host evaluate concurrently: another
-                    # may have evicted the same entry first
-                    cache.pop(next(iter(cache)), None)
-                cache[key] = pr
-            ext = rows[list(e)] & pr
-            total = total + tidlist.popcount32(ext).sum(
-                axis=1, dtype=np.int64)
-        out.append(total)
-    return out
-
-
 def _desc_requests(descs) -> List[SweepRequest]:
     """A descriptor flush as sweep requests on a peer slice: the prefix
     items are the slice's base rows, one handle or a tuple of them."""
@@ -188,20 +149,16 @@ def _desc_requests(descs) -> List[SweepRequest]:
 
 class _PeerEval:
     """Evaluates descriptor flushes on one host's arena slice with a
-    backend of the cluster's kind: the kernel backend sweeps them as
-    tuple-prefix requests on the slice's mirror, through its own staging
-    buffers (one evaluation at a time); the host backend runs
-    :func:`_eval_descs` with its memo."""
+    backend of the cluster's kind, as tuple-prefix sweep requests (on
+    the kernel backend, through its own staging buffers: one evaluation
+    at a time)."""
 
     def __init__(self, arena: BitmapArena, backend: str):
         self.arena = arena
         self.backend = resolve_backend(backend)
-        self.cache: Dict[Any, np.ndarray] = {}
         self._lock = threading.Lock()
 
     def __call__(self, descs) -> List[np.ndarray]:
-        if self.backend.host_parallel:
-            return _eval_descs(self.arena, descs, self.cache)
         with self._lock:
             return self.backend.sweep_many(self.arena, _desc_requests(descs))
 

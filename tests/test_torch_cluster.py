@@ -2,8 +2,8 @@
 seeded data (``device="cpu"``): word partitioning, the loopback cluster
 at every granularity and policy, three hosts, a forced cross-host steal,
 the merged metrics, the streaming cluster, the deterministic billing of
-one-request flushes, peer evaluation through the kernel backend against
-the host evaluation, and a real two-process mine over a TCPStore. Exact
+one-request flushes, peer evaluation through both backends against
+the reference's, and a real two-process mine over a TCPStore. Exact
 equality throughout: supports are integers."""
 import json
 import os
@@ -20,6 +20,7 @@ import repro.core.cluster as rcluster
 from repro.core.fpm import mine as rmine
 from repro.core.streaming import StreamingMiner as RStreamingMiner
 from repro.core.tidlist import BitmapArena as RArena
+from repro.core.tidlist import pack_database as rpack
 from repro.core.tidlist import partition_words as rpartition
 from repro_torch.core import cluster as tcluster
 from repro_torch.core.fpm import mine
@@ -173,8 +174,8 @@ def test_peer_evaluation_on_kernel_backend_equals_host_evaluation():
     """A descriptor flush — prefix tuples of 1 to 5 items, extension
     lists, segment subsets or all segments — counted on a peer slice
     through the kernel backend (tuple-prefix requests, the kernel's plain
-    version on a CPU arena) equals the host evaluation ported from the
-    reference, the reference's own, and an AND-popcount over the slice's
+    version on a CPU arena) and through the host backend equals the
+    reference's evaluation and an AND-popcount over the slice's
     words."""
     port, ref, words = _peer_arenas(3)
     rng = np.random.default_rng(4)
@@ -188,17 +189,15 @@ def test_peer_evaluation_on_kernel_backend_equals_host_evaluation():
         descs.append((d, e, segs))
     kernel = tcluster._PeerEval(port, "torch")(descs)
     host = tcluster._PeerEval(port, "numpy")(descs)
-    ported = tcluster._eval_descs(port, descs, {})
     reference = rcluster._eval_descs(ref, descs, {})
     bounds = np.cumsum([0, 37, 0, 5])
-    for (d, e, segs), k, h, p, r in zip(descs, kernel, host, ported,
-                                        reference):
+    for (d, e, segs), k, h, r in zip(descs, kernel, host, reference):
         cols = np.concatenate([np.arange(bounds[g], bounds[g + 1])
                                for g in (segs if segs is not None
                                          else range(3))]).astype(int)
         prefix = np.bitwise_and.reduce(words[list(d)][:, cols], axis=0)
         want = popcount32(words[list(e)][:, cols] & prefix).sum(axis=1)
-        for got in (k, h, p, r):
+        for got in (k, h, r):
             assert np.array_equal(got, want)
     assert (tcluster._eval_rows_bytes(descs, port)
             == rcluster._eval_rows_bytes(descs, ref))
@@ -276,35 +275,36 @@ def test_streaming_cluster_rejects_mesh_and_diffsets():
 
 DIST_CODE = """
 import json, sys
-import numpy as np
 from repro_torch.core.cluster import mine_distributed_process
-from repro_torch.core.fpm import mine
 from repro_torch.core.tidlist import pack_database
 rank = int(sys.argv[1]); n = int(sys.argv[2]); coord = sys.argv[3]
-rng = np.random.default_rng(9)
-db = [sorted(rng.choice(24, size=int(rng.integers(2, 8)),
-                        replace=False).tolist()) for _ in range(900)]
-bm = pack_database(db, 24)
-ms = 45
+db = json.loads(sys.argv[4])
 res, met = mine_distributed_process(
-    bm, ms, rank=rank, n_procs=n, coordinator=coord, max_k=4,
-    n_workers=2, device="cpu")
-ref, _ = mine(bm, ms, max_k=4, device="cpu")
-assert res == ref, (rank, len(res), len(ref))
-print(json.dumps({"rank": rank, "itemsets": len(res), "n_hosts": met.n_hosts,
-                  "net_bytes": met.net_bytes, "flushes": met.flushes}))
+    pack_database(db, 24), 45, rank=rank, n_procs=n, coordinator=coord,
+    max_k=4, n_workers=2, device="cpu")
+print(json.dumps({"rank": rank, "supports": sorted(
+                      [list(c), v] for c, v in res.items()),
+                  "n_hosts": met.n_hosts, "net_bytes": met.net_bytes,
+                  "flushes": met.flushes}))
 """
 
 
 @pytest.mark.timeout(120)
 def test_two_process_distributed_bit_matches():
+    """Two rank processes over a TCPStore that rank 0 hosts: each rank
+    holds the same supports as the reference's single-host mine of the
+    reference test's 900 x 24 data."""
+    rng = np.random.default_rng(9)
+    db = [sorted(rng.choice(24, size=int(rng.integers(2, 8)),
+                            replace=False).tolist()) for _ in range(900)]
+    want, _ = ref_mine(rpack(db, 24), 45, max_k=4)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         coord = f"127.0.0.1:{s.getsockname()[1]}"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = [subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(DIST_CODE), str(r), "2",
-         coord],
+         coord, json.dumps(db)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
         cwd=ROOT) for r in range(2)]
     outs = []
@@ -318,6 +318,7 @@ def test_two_process_distributed_bit_matches():
             if p.poll() is None:
                 p.kill()
     assert [o["rank"] for o in outs] == [0, 1]
-    assert outs[0]["itemsets"] == outs[1]["itemsets"] > 0
+    assert len(want) > 24
     for o in outs:
+        assert {tuple(c): v for c, v in o["supports"]} == want
         assert o["n_hosts"] == 2 and o["net_bytes"] > 0 and o["flushes"] > 0

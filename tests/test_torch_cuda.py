@@ -413,24 +413,24 @@ def test_top_k_on_card_equals_host_on_ties(cuda, monkeypatch, prefix, k):
 
 
 def _peer_slice(dev):
-    """A segmented slice (widths 37, 0 and 5 words) on ``dev`` and on the
-    host, with its words."""
+    """A segmented slice (widths 37, 0 and 5 words) on ``dev``, with its
+    words on the host."""
     from repro_torch.core.tidlist import BitmapArena
     segs = [RNG.integers(0, 2 ** 32, size=(24, w), dtype=np.uint32)
             for w in (37, 0, 5)]
     arena = BitmapArena.from_bitmaps(segs[0], device=dev)
     for s in segs[1:]:
         arena.add_segment(s)
-    return arena
+    return arena, segs
 
 
 def test_peer_evaluation_on_card_equals_host_evaluation(cuda):
     """Descriptor flushes with prefix tuples of 1 to 5 items and segment
     subsets, counted on a peer slice's mirror through the kernel backend
-    (tuple-prefix launches of ``bitmap_join_many``), equal the host
-    evaluation of the same slice."""
+    (tuple-prefix launches of ``bitmap_join_many``), equal a host
+    AND-popcount over the swept segments' words."""
     from repro_torch.core import cluster
-    arena = _peer_slice(cuda)
+    arena, segs = _peer_slice(cuda)
     descs = []
     for i in range(40):
         d = tuple(sorted(RNG.choice(24, size=1 + i % 5,
@@ -441,9 +441,12 @@ def test_peer_evaluation_on_card_equals_host_evaluation(cuda):
     n0 = bj.launches
     got = cluster._PeerEval(arena, "torch")(descs)
     assert bj.launches > n0
-    want = cluster._eval_descs(arena, descs, {})
-    for g, w in zip(got, want):
-        assert np.array_equal(g, w)
+    for (d, e, sel), g in zip(descs, got):
+        words = np.concatenate([segs[i] for i in (sel if sel is not None
+                                                  else range(3))], axis=1)
+        prefix = np.bitwise_and.reduce(words[list(d)], axis=0)
+        assert np.array_equal(
+            g, popcount32(words[list(e)] & prefix).sum(axis=1))
 
 
 def _small_txns(n_tx):
