@@ -95,13 +95,14 @@ kernels line counts their launches:
               itself.
 Four more phases follow, also before the profile, on the phase-3 data
 (clustered, 8 workers per host):
- 15. cluster  ``repro_torch.mine(hosts=2)`` at bucket grain and max_k=8
-              (supports equal ``mine_serial``, one reduction per flush,
-              ``net_bytes`` > 0, ``bitmap_join_many`` launched on both
-              hosts' mirrors by their own flushes and by peer
-              evaluations with tuple prefixes), then at max_k=4 three
-              hosts, depth-first grain, and every bucket on host 0 (a
-              cross-host steal must happen); prints wall, flushes,
+ 15. cluster  ``repro_torch.mine(hosts=2)`` at bucket grain and max_k=4
+              (cut from 8 for the time limit; supports equal
+              ``mine_serial``, one reduction per flush, ``net_bytes`` >
+              0, ``bitmap_join_many`` launched on both hosts' mirrors by
+              their own flushes and by peer evaluations with tuple
+              prefixes), then three hosts, depth-first grain, and
+              every bucket on host 0 (a cross-host steal must happen);
+              prints wall, flushes,
               occupancy, ``net_bytes`` and each host's ``eval_s`` and
               ``eval_bytes`` beside phase 4;
  16. cluster-stream  ``StreamingMiner(hosts=2)`` on phase 13's stream at
@@ -121,11 +122,43 @@ Four more phases follow, also before the profile, on the phase-3 data
               TCPStore; rank 0 checks its result against ``mine_serial``,
               each rank prints its kernel launches (parsed here; both
               must be > 0), and a rank's non-zero exit fails the phase.
-Each run of phases 11-17 wraps the backend's four kernel entries
+Three more phases follow, also before the profile, on two logical
+shards of the one card (two mirrors, two dispatchers, two backends):
+ 19. mesh     ``repro_torch.mine(mesh=2)`` on the phase-3 data at bucket
+              grain and max_k=8 (supports equal ``mine_serial``, two
+              devices, both dispatchers flushed, both batched kernels
+              launched on each shard's mirror, ``d2d_bytes`` a whole
+              number of rows), then at max_k=4 candidate grain (every
+              join through a shard's dispatcher), depth-first grain,
+              every root class on shard 0's workers (cross-shard steals
+              must migrate rows: ``migrations``, ``d2d_bytes`` and
+              ``steal_migrations`` > 0; of up to three attempts only the
+              kept one is counted), a one-device mesh ``[cuda:0]`` at
+              phase 4's settings (no d2d) and
+              ``repro_torch.mine_distributed(mesh=2)`` under both
+              policies; each run's wall beside phase 3's (or phase
+              4's at max_k=4), with per-shard flushes, occupancy,
+              ``sweep_s``, ``d2d_bytes`` and ``migrations``;
+ 20. mesh-stream  ``StreamingMiner(mesh=2)`` on phase 13's stream at
+              max_k=4 (``arena="jax"``): each ingest bills its segment
+              once per shard, the final supports equal ``mine_serial``,
+              tuple-prefix launches on both shards' mirrors, and 64
+              ``support_many`` batches of 8 answered through priority
+              sweeps on both shards' dispatchers (each equal to a host
+              AND-popcount); then ``TenantHub(mesh=2)`` with phase 17's
+              two tenants, each final snapshot equal to ``mine_serial``
+              of its own data;
+ 21. launcher-mesh  the launcher's ``main`` with ``--dataset t10i4 --mesh
+              2 --policies clustered --max-k 8`` in this process; it
+              checks ``mine_serial`` itself and prints ``d2d=``,
+              ``migrations=`` and ``dev_occ=``.
+Each run of phases 11-21 wraps the backend's four kernel entries
 (``EntrySpy``): calls must equal the counted launches, and each entry's
 first call (and the dense entry's first tuple-prefix call) is held
 against its plain version; in phases 15-16 also the first tuple-prefix
-call of a peer evaluation (``HostSpy``).
+call of a peer evaluation (``HostSpy``), and in phases 19-21 the first
+call on each shard's mirror (``ShardSpy``, which attributes every launch
+to the shard whose mirror it was handed).
 
 The script imports nothing of JAX or of the reference package ``repro``.
 It exits non-zero without a result when no CUDA device is present.
@@ -1158,18 +1191,19 @@ def spied(run):
 def phase_cluster(dev, bitmaps, counts, min_support, serial, bitmap_met):
     """Phase 15: the multi-host mine on the card, four runs, each with
     the launch counts set to 0 just before it and read just after it:
-    ``repro_torch.mine(hosts=2)`` at bucket grain and max_k=8 (supports
-    equal ``mine_serial``, one reduction per flush, bytes on the
-    interconnect, ``bitmap_join_many`` launched on both hosts' mirrors
-    by their own flushes and by peer evaluations with tuple prefixes),
-    then at max_k=4 three hosts, depth-first grain and a forced
-    cross-host steal (of up to three attempts, only the one kept is
-    counted). Returns the launches of each run, by column."""
+    ``repro_torch.mine(hosts=2)`` at bucket grain (supports equal
+    ``mine_serial``, one reduction per flush, bytes on the interconnect,
+    ``bitmap_join_many`` launched on both hosts' mirrors by their own
+    flushes and by peer evaluations with tuple prefixes), then three
+    hosts, depth-first grain and a forced cross-host steal (of up to
+    three attempts, only the one kept is counted), all at max_k=4.
+    Returns the launches of each run, by column."""
     import repro_torch
     from repro_torch.core import cluster
     want4 = {c: v for c, v in serial.items() if len(c) <= BITMAP_MAX_K}
     runs = [
-        ("cluster", "hosts=2, bucket", MAIN_MAX_K, dict(hosts=2)),
+        # max_k=4, not 8: the smoke's time limit (PERF.md section 4)
+        ("cluster", "hosts=2, bucket", BITMAP_MAX_K, dict(hosts=2)),
         ("cluster-3", "hosts=3, bucket", BITMAP_MAX_K, dict(hosts=3)),
         ("cluster-depth-first", "hosts=2, depth-first", BITMAP_MAX_K,
          dict(hosts=2, granularity="depth-first")),
@@ -1483,6 +1517,430 @@ def phase_hosts_loopback(dev):
     log_cluster(f"hosts-loopback: mine[hosts=2, bucket, max_k={MAIN_MAX_K}] "
                 f"on the launcher's {len(db)} transactions", wall, met,
                 f"launches={json.dumps(launches)} ")
+    return launches
+
+
+class ShardSpy:
+    """Wraps the kernel backend for one mesh run: each ``TorchBackend.
+    sweep_many`` call notes the arena it sweeps, and each call of an
+    indexed entry under it is attributed to the shard whose mirror it was
+    handed (the mirror tensor, argument 2, is one of that shard's
+    per-segment mirrors). Counts launches per (kernel, shard) and
+    tuple-prefix launches per shard, and keeps each (kernel, shard)'s
+    first call for :meth:`hold`. Enter it inside an ``EntrySpy``, so that
+    both see every call."""
+
+    ENTRIES = ("bitmap_join_many_rows", "gather_intersect_many_rows")
+
+    def __enter__(self):
+        import threading
+        import torch
+        from repro_torch.core import join_backend
+        self.local = threading.local()
+        self.lock = threading.Lock()
+        self.calls = collections.Counter()
+        self.tuples = collections.Counter()
+        self.first = {}
+        self.targets = [(join_backend.TorchBackend, "sweep_many")] + [
+            (join_backend, name) for name in self.ENTRIES]
+        self.originals = [getattr(o, n) for o, n in self.targets]
+        sweep_many = self.originals[0]
+        spy = self
+
+        def swept(backend, arena, requests):
+            spy.local.arena = arena
+            return sweep_many(backend, arena, requests)
+
+        def wrap(name, fn):
+            def call(*args):
+                arena = spy.local.arena
+                owner = [s for s in range(arena.n_shards)
+                         for m in list(arena._mirrors[s].values())
+                         if m.data_ptr() == args[2].data_ptr()]
+                if len(owner) != 1:
+                    raise SystemExit(f"{name}: a launch on a mirror of "
+                                     f"shards {owner}, not of one shard")
+                key = (name, owner[0])
+                with spy.lock:
+                    spy.calls[key] += 1
+                    if name == "bitmap_join_many_rows" and args[1].dim() == 2:
+                        spy.tuples[owner[0]] += 1
+                    if key not in spy.first:
+                        mirror = args[2].clone()
+                        spy.first[key] = tuple(
+                            mirror if a is args[2] else
+                            a.clone() if isinstance(a, torch.Tensor) else a
+                            for a in args)
+                return fn(*args)
+            return call
+
+        setattr(join_backend.TorchBackend, "sweep_many", swept)
+        for name, fn in zip(self.ENTRIES, self.originals[1:]):
+            setattr(join_backend, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (obj, name), fn in zip(self.targets, self.originals):
+            setattr(obj, name, fn)
+
+    def per_shard(self):
+        """{kernel: [launches on shard 0, shard 1, ...]} (short names)."""
+        shards = 1 + max((s for _, s in self.calls), default=0)
+        return {name[:-len("_rows")]: [self.calls[(name, s)]
+                                       for s in range(shards)]
+                for name in self.ENTRIES}
+
+    def check(self, label, shards, kernels=("bitmap_join_many_rows",)):
+        """Each of ``kernels`` launched on every one of ``shards``
+        shards' mirrors, and on no other."""
+        seen = {s for _, s in self.calls}
+        missing = [(k, s) for k in kernels for s in range(shards)
+                   if not self.calls[(k, s)]]
+        if missing or seen - set(range(shards)):
+            raise SystemExit(f"{label}: launches per shard mirror "
+                             f"{self.per_shard()}; missing {missing}")
+        return self.per_shard()
+
+    def hold(self, label):
+        """Each (kernel, shard)'s first call against its plain version."""
+        import torch
+        from repro_torch.kernels.bitmap_join import ops as bj
+        from repro_torch.kernels.bitmap_join import ref as bj_ref
+        from repro_torch.kernels.gather_intersect import ops as gi
+        from repro_torch.kernels.gather_intersect import ref as gi_ref
+        for (name, shard), args in sorted(self.first.items()):
+            ops, ref = (bj, bj_ref) if name.startswith("bitmap") else (
+                gi, gi_ref)
+            got = getattr(ops, name)(*args)
+            want = getattr(ref, f"{name}_ref")(*args)
+            torch.cuda.synchronize()
+            shape = describe(name[:-len("_rows")], args)
+            if not torch.equal(got, want):
+                raise SystemExit(f"{label}: {name} on shard {shard}'s "
+                                 f"mirror disagrees with its plain version "
+                                 f"at {shape}")
+            log(f"  {label}: {name} at its first call on shard {shard}'s "
+                f"mirror ({shape}): equals its plain version ok")
+
+
+def mesh_spied(run):
+    """``run()`` with the backend's kernel entries spied on twice
+    (``EntrySpy``, ``ShardSpy``), the launch counts set to 0 just before
+    and read just after. Returns ``run()``'s result, its wall, the
+    launches and both spies."""
+    with EntrySpy() as spy, ShardSpy() as shards:
+        reset_launches()
+        t0 = time.perf_counter()
+        out = run()
+        wall = time.perf_counter() - t0
+        launches = counted_launches()
+    return out, wall, launches, spy, shards
+
+
+def log_mesh(label, wall, met, base=None, extra=""):
+    """One mesh run's line: wall (beside the phase ``base`` names), then
+    per shard its flushes, occupancy and backend time."""
+    shards = "; ".join(
+        f"shard {d['device']}: flushes={d['flushes']} occupancy="
+        f"{d['batch_occupancy']:.2f} sweep_s={d['sweep_s']:.3f}"
+        for d in met.per_device)
+    beside = f" (phase {base[0]}: {base[1]:.3f})" if base else ""
+    log(f"{label}: wall_s={wall:.3f}{beside} "
+        f"flushes={met.flushes} occupancy={met.batch_occupancy:.2f} "
+        f"d2d_bytes={met.d2d_bytes} migrations={met.migrations} "
+        f"steal_migrations={int(met.scheduler['steal_migrations'])} "
+        f"{extra}[{shards}]")
+
+
+def phase_mesh(dev, bitmaps, counts, min_support, serial, main_met,
+               bitmap_met):
+    """Phase 19: the mesh on the card, two logical shards (two mirrors,
+    two dispatchers, two backends on the one card), each run with the
+    launch counts set to 0 just before it and read just after it, and
+    spied on by ``EntrySpy`` and ``ShardSpy``: ``repro_torch.mine(mesh=
+    2)`` at bucket grain and max_k=8 (both batched kernels on each
+    shard's mirror), then at max_k=4 candidate grain (every join through
+    a shard's dispatcher), depth-first grain, every root class on shard
+    0's workers (cross-shard steals must migrate handoff rows; of up to
+    three attempts only the kept one is counted), a one-device mesh
+    (``[cuda:0]`` at phase 4's settings: no d2d) and
+    ``mine_distributed`` under both policies. Returns the launches of
+    each run, by column."""
+    import torch
+    import repro_torch
+    from repro_torch.core import scheduler
+    row_bytes = bitmaps.shape[1] * 4
+    want4 = {c: v for c, v in serial.items() if len(c) <= BITMAP_MAX_K}
+    base8, base4 = (3, main_met.wall_s), (4, bitmap_met.wall_s)
+    columns = {}
+
+    def mine(**kw):
+        return repro_torch.mine(bitmaps, min_support, device=dev,
+                                policy="clustered", item_counts=counts,
+                                **{"granularity": "bucket", **kw})
+
+    runs = [
+        ("mesh", "mesh=2, bucket, auto", MAIN_MAX_K,
+         lambda: mine(mesh=2, max_k=MAIN_MAX_K)),
+        ("mesh-candidate", "mesh=2, candidate", BITMAP_MAX_K,
+         lambda: mine(mesh=2, max_k=BITMAP_MAX_K, granularity="candidate")),
+        ("mesh-depth-first", "mesh=2, depth-first", BITMAP_MAX_K,
+         lambda: mine(mesh=2, max_k=BITMAP_MAX_K,
+                      granularity="depth-first")),
+        ("mesh-steal", "mesh=2, depth-first, every root on shard 0",
+         BITMAP_MAX_K, lambda: mine(mesh=2, max_k=BITMAP_MAX_K,
+                                    granularity="depth-first")),
+        # phase 4's configuration, so that its wall stands beside phase 4's
+        ("mesh-1", "mesh=[cuda:0], bucket, bitmap", BITMAP_MAX_K,
+         lambda: mine(mesh=[torch.device("cuda:0")], max_k=BITMAP_MAX_K,
+                      representation="bitmap")),
+    ]
+    for column, label, max_k, run in runs:
+        steal = column == "mesh-steal"
+        for attempt in range(3 if steal else 1):
+            hashed = scheduler.stable_hash
+            if steal:
+                # a driver spawn goes to worker hash % 8: worker 0, shard 0
+                scheduler.stable_hash = lambda key: 0
+            try:
+                (result, met), wall, launches, spy, shards = mesh_spied(run)
+            finally:
+                scheduler.stable_hash = hashed
+            if not steal or (met.migrations > 0 and met.d2d_bytes > 0):
+                break
+            log(f"  mesh[{label}]: no migration in attempt {attempt + 1} "
+                f"(steal_migrations="
+                f"{int(met.scheduler['steal_migrations'])}); again")
+        if result != (serial if max_k == MAIN_MAX_K else want4):
+            raise SystemExit(f"mesh[{label}]: supports differ from "
+                             f"mine_serial")
+        n = 1 if column == "mesh-1" else 2
+        if met.n_devices != n or not all(d["flushes"] > 0
+                                         for d in met.per_device):
+            raise SystemExit(f"mesh[{label}]: {met.n_devices} devices, "
+                             f"per-shard gauges {met.per_device}")
+        if steal and not (met.migrations > 0 and met.d2d_bytes > 0
+                          and met.scheduler["steal_migrations"] > 0):
+            raise SystemExit(f"mesh[{label}]: no cross-shard migration in "
+                             f"3 runs")
+        if column == "mesh-1" and met.d2d_bytes:
+            raise SystemExit(f"mesh[{label}]: d2d_bytes={met.d2d_bytes} "
+                             f"on one shard")
+        if column == "mesh" and met.d2d_bytes % row_bytes:
+            raise SystemExit(f"mesh[{label}]: d2d_bytes={met.d2d_bytes} "
+                             f"is no whole number of {row_bytes}-byte rows")
+        kernels = ShardSpy.ENTRIES if column == "mesh" else (
+            "bitmap_join_many_rows",)
+        per_shard = shards.check(f"mesh[{label}]", n, kernels)
+        spy.check_route(f"mesh[{label}]", launches, met.sparse_sweeps,
+                        indexed=True)
+        log_mesh(f"mesh mine[{label}, max_k={max_k}]", wall, met,
+                 base8 if max_k == MAIN_MAX_K else base4,
+                 f"sparse_sweeps={met.sparse_sweeps} ")
+        log(f"  mesh[{label}]: supports==mine_serial ok; launches="
+            f"{json.dumps(launches)}, per shard mirror {per_shard}, all "
+            f"through the indexed entries")
+        spy.hold(f"mesh[{label}]")
+        shards.hold(f"mesh[{label}]")
+        columns[column] = launches
+    total = {"bitmap_join_many": 0, "gather_intersect_many": 0}
+    for policy in ("clustered", "round_robin"):
+        (result, stats), wall, launches, spy, shards = mesh_spied(
+            lambda: repro_torch.mine_distributed(
+                bitmaps, min_support, 2, policy=policy,
+                max_k=BITMAP_MAX_K, device=dev))
+        if result != want4 or stats["n_devices"] != 2:
+            raise SystemExit(f"mesh-distributed[{policy}]: supports differ "
+                             f"from mine_serial, or {stats['n_devices']} "
+                             f"devices")
+        per_shard = shards.check(f"mesh-distributed[{policy}]", 2)
+        spy.check_route(f"mesh-distributed[{policy}]", launches, 0,
+                        indexed=True)
+        occ = "/".join(f"{d['batch_occupancy']:.2f}"
+                       for d in stats["per_device"])
+        log(f"mesh-distributed[{policy}, max_k={BITMAP_MAX_K}]: wall_s="
+            f"{wall:.3f} (phase 4: {bitmap_met.wall_s:.3f}) rows_touched="
+            f"{stats['rows_touched']} d2d_bytes={stats['d2d_bytes']} "
+            f"migrations={stats['migrations']} dev_occ={occ}; supports=="
+            f"mine_serial ok; launches={json.dumps(launches)}, per shard "
+            f"mirror {per_shard}")
+        spy.hold(f"mesh-distributed[{policy}]")
+        for k in total:
+            total[k] += launches[k]
+    columns["mesh-distributed"] = total
+    return columns
+
+
+def phase_mesh_stream(dev, db, n_items, min_support, serial):
+    """Phase 20: ``StreamingMiner(mesh=2)`` on phase 13's stream at
+    max_k=4 (``arena="jax"``): each ingest bills the new segment's base
+    rows once per shard (they are replicated, as the reference bills a
+    two-shard arena), the final supports equal ``mine_serial``, the dense
+    kernel runs tuple prefixes on both shards' mirrors, and 64
+    ``support_many`` batches of 8 go out as priority sweeps on both
+    shards' dispatchers, each answer equal to a host AND-popcount; then a
+    ``TenantHub(mesh=2)`` with phase 17's two tenants (45,000 + 2 x 2,500
+    transactions each), each final snapshot equal to ``mine_serial`` of
+    its own data. Launch counts are set to 0 just before and read just
+    after each. Returns the launches by column."""
+    import numpy as np
+    from repro_torch.core import fpm
+    from repro_torch.core import streaming as ts
+    from repro_torch.core.tidlist import pack_database, support_of
+    want = {c: v for c, v in serial.items() if len(c) <= BITMAP_MAX_K}
+    rng = np.random.default_rng(20)
+    probes = []
+    while len(probes) < 64 * 8:
+        t = db[int(rng.integers(len(db)))]
+        if len(t) > BITMAP_MAX_K:
+            k = int(rng.integers(BITMAP_MAX_K + 1, min(7, len(t)) + 1))
+            probes.append(tuple(sorted(int(i) for i in
+                                       rng.choice(t, k, replace=False))))
+    words = pack_database(db, n_items)
+    host = [support_of(words[list(x)]) for x in probes]
+    columns = {}
+
+    def stream():
+        sm = ts.StreamingMiner(
+            n_items, min_support, initial_db=db[:STREAM_INITIAL],
+            device=dev, policy="clustered", n_workers=8,
+            max_k=BITMAP_MAX_K, granularity="bucket", arena="jax", mesh=2)
+        try:
+            n = sm.arena.n_shards
+            if sm.arena.h2d_bytes != n * sm.arena.seg_nbytes(0):
+                raise SystemExit(f"mesh-stream: h2d at load "
+                                 f"{sm.arena.h2d_bytes} B, not {n} x "
+                                 f"{sm.arena.seg_nbytes(0)} B")
+            rep = sm.refresh()
+            log_mesh(f"  initial {STREAM_INITIAL}: refresh gen "
+                     f"{rep.generation}", rep.wall_s, rep.metrics,
+                     extra=f"frequent={rep.frequent} ")
+            for lo, hi in STREAM_BATCHES:
+                ing = sm.ingest(db[lo:hi])
+                if not (ing.h2d_bytes == n * ing.payload_bytes
+                        == n * sm.arena.seg_nbytes(ing.segment)):
+                    raise SystemExit(f"mesh-stream: ingest of {hi - lo} "
+                                     f"transactions billed {ing.h2d_bytes}"
+                                     f" B, not {n} x {ing.payload_bytes} B")
+                log(f"  ingest [{lo}, {hi}): segment {ing.segment}, "
+                    f"W_seg={ing.words}, h2d={ing.h2d_bytes} B == {n} "
+                    f"shards x seg_nbytes ok")
+                rep = sm.refresh()
+                log_mesh(f"  +{hi - lo} tx: refresh gen {rep.generation}",
+                         rep.wall_s, rep.metrics,
+                         extra=f"reused={rep.reused} delta={rep.swept_delta} "
+                         f"full={rep.swept_full} rep_d2d={rep.d2d_bytes} ")
+            if dict(sm.snapshot.supports) != want:
+                raise SystemExit("mesh-stream: final supports differ from "
+                                 "mine_serial")
+            srv = ts.PatternServer(sm)
+            q0 = [d.query_requests for d in sm._runtime.dispatchers]
+            answers = []
+            for i in range(0, len(probes), 8):
+                answers += srv.support_many(probes[i:i + 8])
+            q = [d.query_requests - a
+                 for d, a in zip(sm._runtime.dispatchers, q0)]
+            if answers != host or min(q) == 0:
+                raise SystemExit(f"mesh-stream: swept answers equal the "
+                                 f"host's: {answers == host}; query "
+                                 f"requests per shard {q}")
+            log(f"  serve: 64 batches of 8 never-counted itemsets == host "
+                f"AND-popcount ok; priority requests per shard {q}")
+        finally:
+            sm.close()
+
+    _, wall, launches, spy, shards = mesh_spied(stream)
+    per_shard = shards.check("mesh-stream", 2)
+    if min(shards.tuples[s] for s in (0, 1)) == 0:
+        raise SystemExit(f"mesh-stream: tuple-prefix launches per shard "
+                         f"{dict(shards.tuples)}")
+    spy.check_route("mesh-stream", launches, 0, indexed=True)
+    log(f"mesh-stream: StreamingMiner(mesh=2) over {STREAM_INITIAL} "
+        f"transactions and {len(STREAM_BATCHES)} ingests in {wall:.1f} s; "
+        f"final supports == mine_serial ({len(want)} itemsets) ok; launches="
+        f"{json.dumps(launches)}, per shard mirror {per_shard}, tuple "
+        f"prefixes per shard {dict(shards.tuples)}")
+    spy.hold("mesh-stream")
+    shards.hold("mesh-stream")
+    columns["mesh-stream"] = launches
+
+    frac = min_support / len(db)
+
+    def tenants():
+        hub = ts.TenantHub(n_items, device=dev, policy="clustered",
+                           n_workers=8, max_k=BITMAP_MAX_K, mesh=2)
+        try:
+            ts_ = {tid: hub.tenant(tid, frac, weight=w)
+                   for tid, (_, w) in TENANTS.items()}
+            rounds = [(0, TENANT_INITIAL)] + [
+                (TENANT_INITIAL + r * TENANT_BATCH,
+                 TENANT_INITIAL + (r + 1) * TENANT_BATCH) for r in range(2)]
+            for a, b in rounds:
+                for tid, ((lo, _), _) in TENANTS.items():
+                    ts_[tid].ingest(db[lo + a:lo + b])
+                for tid, rep in hub.refresh_all().items():
+                    log_mesh(f"  tenant {tid}: +{b - a} tx, refresh gen "
+                             f"{rep.generation}", rep.wall_s, rep.metrics,
+                             extra=f"frequent={rep.frequent} ")
+            return {tid: t.snapshot for tid, t in ts_.items()}
+        finally:
+            hub.close()
+
+    snaps, wall, launches, spy, shards = mesh_spied(tenants)
+    for tid, ((lo, hi), _) in TENANTS.items():
+        snap = snaps[tid]
+        mine = fpm.mine_serial(pack_database(db[lo:hi], n_items),
+                               snap.min_support, max_k=BITMAP_MAX_K)
+        if dict(snap.supports) != mine:
+            raise SystemExit(f"mesh-tenants: tenant {tid}'s snapshot "
+                             f"differs from mine_serial of its data")
+        log(f"mesh-tenants: tenant {tid}: snapshot gen {snap.generation} "
+            f"== mine_serial of its {hi - lo} transactions ({len(mine)} "
+            f"itemsets) ok")
+    per_shard = shards.check("mesh-tenants", 2)
+    spy.check_route("mesh-tenants", launches, 0, indexed=True)
+    log(f"mesh-tenants: TenantHub(mesh=2) in {wall:.1f} s; launches="
+        f"{json.dumps(launches)}, per shard mirror {per_shard}")
+    spy.hold("mesh-tenants")
+    shards.hold("mesh-tenants")
+    columns["mesh-tenants"] = launches
+    return columns
+
+
+def phase_launcher_mesh():
+    """Phase 21: the launcher's ``main`` with ``--dataset t10i4 --mesh 2
+    --policies clustered --max-k 8`` in this process, the launch counts
+    set to 0 just before and read just after; it checks ``mine_serial``
+    itself. Its ``mesh:`` line and ``d2d=``, ``migrations=`` and
+    ``dev_occ=`` columns must be printed. Returns the launches."""
+    import contextlib
+    import io
+    import re
+    from repro_torch.launch import fpm_mine
+    argv = ["--dataset", "t10i4", "--mesh", "2", "--policies", "clustered",
+            "--max-k", str(MAIN_MAX_K)]
+    log(f"launcher-mesh: python -m repro_torch.launch.fpm_mine "
+        f"{' '.join(argv)}")
+    out = io.StringIO()
+    with EntrySpy() as spy, ShardSpy() as shards:
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            fpm_mine.main(argv)
+        wall = time.perf_counter() - t0
+        launches = counted_launches()
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"  {line}")
+    if ("mesh: 2 device shards" not in text or not re.search(
+            r"^clustered .* d2d=\d+B migrations=\d+ dev_occ=[\d.]+/[\d.]+",
+            text, re.M)):
+        raise SystemExit("launcher-mesh: no mesh line or mesh columns")
+    per_shard = shards.check("launcher-mesh", 2)
+    spy.check_route("launcher-mesh", launches, True, indexed=True)
+    log(f"launcher-mesh: equals mine_serial in {wall:.1f} s; launches="
+        f"{json.dumps(launches)}, per shard mirror {per_shard}")
+    spy.hold("launcher-mesh")
     return launches
 
 
@@ -1869,6 +2327,13 @@ def main() -> int:
     note("tenants", phase_tenants(dev, db, prof.n_items, min_support))
     note("hosts", phase_hosts())
     note("hosts-loopback", phase_hosts_loopback(dev))
+    for column, got in phase_mesh(dev, bitmaps, counts, min_support, serial,
+                                  main_met, bitmap_met).items():
+        note(column, got)
+    for column, got in phase_mesh_stream(dev, db, prof.n_items,
+                                         min_support, serial).items():
+        note(column, got)
+    note("launcher-mesh", phase_launcher_mesh())
 
     for granularity, representation, max_k in (
             ("bucket", "auto", MAIN_MAX_K),

@@ -572,7 +572,8 @@ def _drive(store: BitmapArena, runtime, min_support: int, max_k: int, *,
 
 _SUM_FIELDS = ("buckets", "cache_hits", "cache_misses",
                "cache_partial_hits", "rows_touched", "bytes_swept",
-               "h2d_bytes", "flushes", "dense_sweeps", "sparse_sweeps",
+               "h2d_bytes", "flushes", "d2d_bytes", "migrations",
+               "dense_sweeps", "sparse_sweeps",
                "sparse_bytes_swept", "sparse_rows", "densify_ops",
                "densify_bytes", "sparsify_ops", "sparsify_bytes")
 _MAX_FIELDS = ("wall_s", "levels", "peak_retained_bitmaps",
@@ -586,7 +587,7 @@ def merge_metrics(per_host: List["fpm.MiningMetrics"],
     level gauges take host 0 (every levelwise driver counts the global
     frontier) except under depth-first, where each host counts only its
     owned subtrees and the sum is the global figure."""
-    m = fpm.MiningMetrics()
+    m = fpm.MiningMetrics(n_devices=per_host[0].n_devices)
     for f in _SUM_FIELDS:
         setattr(m, f, sum(getattr(h, f) for h in per_host))
     for f in _MAX_FIELDS:

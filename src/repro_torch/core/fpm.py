@@ -37,8 +37,13 @@ mirror syncs and the driver's level spans. ``mine_more(delta=)`` is the
 streaming refresh's incremental re-mine (``DeltaPlan``; driven by
 ``repro_torch.core.streaming``). ``mine(hosts=N)`` runs the same
 engines over N word-sliced host arenas with two-phase support counting
-(``repro_torch.core.cluster``). Multi-device meshes belong to a later
-slice of the port and raise ``NotImplementedError``.
+(``repro_torch.core.cluster``). ``mine(mesh=...)`` runs the same engines,
+every granularity and policy, over device shards: the arena keeps one
+set of mirrors per shard (item rows replicated, a made row owned by the
+shard that made it), one dispatcher per shard sweeps through a kernel
+backend of its own, workers are pinned to shards, and a cross-shard
+bucket steal migrates the bucket's handoff rows. Cross-shard traffic is
+``MiningMetrics.d2d_bytes``, rows re-owned ``migrations``.
 """
 from __future__ import annotations
 
@@ -89,6 +94,12 @@ class MiningMetrics:
     # (sweep requests per flush; >1 means coalescing actually happened)
     flushes: int = 0
     batch_occupancy: float = 0.0
+    # mesh gauges: shards in the run, modeled cross-shard row traffic
+    # (on-demand foreign fetches + steal migrations), rows re-owned by
+    # migration, and one dispatcher stats row per shard
+    n_devices: int = 1
+    d2d_bytes: int = 0
+    migrations: int = 0
     per_device: List[Dict[str, float]] = field(default_factory=list)
     scheduler: Dict[str, float] = field(default_factory=dict)
     # hybrid-representation gauges: sweeps split by the prefix row's
@@ -142,13 +153,15 @@ class _PrefixCache:
     handle handoff makes it vestigial there (cache_misses == 0)."""
 
     def __init__(self, arena: BitmapArena, maxsize: int = 32,
-                 upto: Optional[int] = None,
+                 shard: int = 0, upto: Optional[int] = None,
                  model: Optional[DensityModel] = None):
         self.arena = arena
         self.maxsize = maxsize
         self.model = model        # density model: sparse-worthy prefix
                                   # intersections are pushed as
                                   # tid-lists instead of word-columns
+        self.shard = shard        # rows this cache pushes are owned by
+                                  # the caching worker's shard
         self.upto = upto          # segment boundary: builds read (and
                                   # pushed rows cover) only the first
                                   # ``upto`` segments, so an ingest
@@ -201,9 +214,9 @@ class _PrefixCache:
             rows_read = len(prefix)
         if (self.model is not None and self.model.pick_rep(
                 int(tidlist.popcount32(bm).sum())) != "bitmap"):
-            h = arena.sparsify_push(bm, cover=self.upto)
+            h = arena.sparsify_push(bm, shard=self.shard, cover=self.upto)
         else:
-            h = arena.push(bm, cover=self.upto)
+            h = arena.push(bm, shard=self.shard, cover=self.upto)
         arena.retain(h)           # the caller's reference, BEFORE _put:
         self._put(prefix, h)      # maxsize=0 evicts-and-releases at once
         return h, rows_read
@@ -249,6 +262,35 @@ def _cluster_fn(granularity: str, policy: str):
                 else (lambda a: a[0]))
     return ((lambda a: a[1]) if policy == "nn"
             else (lambda a: a[0]))
+
+
+def _resolve_mesh(mesh) -> Tuple[int, Optional[List[torch.device]]]:
+    """``mesh=`` is None (a shared-memory run), an int (that many logical
+    shards, all on the run's device: ownership, affinity and d2d
+    accounting with one set of mirrors per shard) or a list or tuple of
+    ``torch.device`` (one shard per device, its mirrors there). Returns
+    (n_shards, devices or None)."""
+    if mesh is None:
+        return 1, None
+    if isinstance(mesh, int):
+        if mesh < 1:
+            raise ValueError(f"mesh must be >= 1 shards, got {mesh}")
+        return mesh, None
+    if isinstance(mesh, (list, tuple)) and mesh:
+        return len(mesh), [torch.device(d) for d in mesh]
+    raise ValueError(f"mesh must be None, an int or a non-empty list of "
+                     f"devices, got {mesh!r}")
+
+
+def mesh_over_devices(n: int) -> "int | List[torch.device] | None":
+    """The launcher's ``--mesh N``: the first N CUDA devices when the
+    host has that many, else N logical shards (the int form of
+    ``mine``'s ``mesh=``); None for ``n <= 1``, a shared-memory run."""
+    if n <= 1:
+        return None
+    if torch.cuda.device_count() >= n:
+        return [torch.device(f"cuda:{i}") for i in range(n)]
+    return n
 
 
 @dataclass
@@ -318,13 +360,18 @@ class DeltaPlan:
 
 
 class EngineRuntime:
-    """The engine substrate: one scheduler plus one sweep dispatcher
-    over the arena. ``mine`` builds one per call and tears it down with
-    the run; the streaming layer owns ONE across its whole life and
-    lends it to every refresh's :class:`MiningRun`, so query sweeps
-    submitted between (and during) refreshes land on the same dispatcher
-    as candidate sweeps and coalesce into the same flushes. Idle cost is
-    zero: the dispatcher thread and the workers park untimed.
+    """The engine substrate: one scheduler with shard-affine workers plus
+    one sweep dispatcher per arena shard, each with a kernel backend of
+    its own (a ``TorchBackend``'s staging buffers belong to one thread).
+    Worker ``i`` runs on shard ``i % n_shards`` (``device_of``), and
+    there are at least as many workers as shards; a steal across shards
+    migrates the stolen task's rows (``BitmapArena.migrate``).
+    ``mine`` builds one per call and tears it down with the run; the
+    streaming layer owns ONE across its whole life and lends it to every
+    refresh's :class:`MiningRun`, so query sweeps submitted between (and
+    during) refreshes land on the same dispatchers as candidate sweeps
+    and coalesce into the same flushes. Idle cost is zero: the
+    dispatcher threads and the workers park untimed.
 
     ``cluster`` is a multi-host context (``repro_torch.core.cluster``):
     the dispatcher reduces every flush across hosts through it, and the
@@ -334,8 +381,9 @@ class EngineRuntime:
                  n_workers: int = 8, granularity: str = "bucket",
                  backend: str = "auto", max_batch: int = MAX_BATCH,
                  flush_us: float = FLUSH_US, cluster=None, tracer=None):
+        n_shards = store.n_shards
+        n_workers = max(n_workers, n_shards)    # >= 1 worker per shard
         self.store = store
-        self.backend = resolve_backend(backend)
         self.cluster = cluster
         # observability (repro_torch.obs): one tracer threaded through
         # every layer this runtime owns — scheduler workers, the
@@ -346,13 +394,17 @@ class EngineRuntime:
         self.trace_pid = cluster.host_id if cluster is not None else 0
         if tracer is not None:
             store.tracer = tracer
+        self.device_of = [i % n_shards for i in range(n_workers)]
         self.dispatchers = [SweepDispatcher(
-            store, self.backend, n_clients=n_workers,
-            max_batch=max_batch, flush_us=flush_us, cluster=cluster,
-            tracer=tracer, trace_pid=self.trace_pid)]
+            store, resolve_backend(backend),
+            n_clients=self.device_of.count(s), max_batch=max_batch,
+            flush_us=flush_us, shard=s, cluster=cluster, tracer=tracer,
+            trace_pid=self.trace_pid) for s in range(n_shards)]
         self.sched = TaskScheduler(
             n_workers,
             make_policy(policy, n_workers, _cluster_fn(granularity, policy)),
+            device_of=self.device_of,
+            migrate_cb=lambda hs, src, dst: store.migrate(hs, dst),
             tracer=tracer, trace_pid=self.trace_pid)
         # pull-based snapshot API: live gauges, readable any time
         self.registry = MetricsRegistry()
@@ -361,6 +413,8 @@ class EngineRuntime:
             "per_device", lambda: [d.stats() for d in self.dispatchers])
         self.registry.register(
             "arena", lambda: {"h2d_bytes": store.h2d_bytes,
+                              "d2d_bytes": store.d2d_bytes,
+                              "migrations": store.migrations,
                               "compactions": store.compactions,
                               "compaction_bytes": store.compaction_bytes,
                               "live_extra": store.live_extra})
@@ -421,11 +475,13 @@ class MiningRun:
                                  else "sparse")))
         self.dispatchers = runtime.dispatchers
         self.sched = runtime.sched
-        self.metrics = MiningMetrics()
+        self.metrics = MiningMetrics(n_devices=store.n_shards)
         self.caches: Dict[int, _PrefixCache] = {}   # thread ident -> cache
-        # cluster mode routes even candidate-grain joins through the
-        # dispatcher: a direct host join would skip the reduction
-        self.sweep_joins = runtime.cluster is not None
+        # a mesh routes even candidate-grain joins through the shard's
+        # dispatcher (every row access is booked to its shard), and so
+        # does a cluster (a direct host join would skip the reduction)
+        self.sweep_joins = (store.n_shards > 1
+                            or runtime.cluster is not None)
         # gauge baselines: zero for an owned runtime, the accumulated
         # counters for a borrowed one — finalize() reports deltas
         self._disp0 = [(d.flushes, d.requests, d.queue_flushes,
@@ -477,6 +533,8 @@ class MiningRun:
         metrics.batch_occupancy = (total_requests / metrics.flushes
                                    if metrics.flushes else 0.0)
         metrics.h2d_bytes = store.h2d_bytes
+        metrics.d2d_bytes = store.d2d_bytes
+        metrics.migrations = store.migrations
         metrics.peak_retained_bitmaps = store.peak_live_extra
         metrics.peak_bytes_retained = store.peak_bytes_extra
         metrics.representation = self.representation
@@ -533,23 +591,26 @@ def mine(bitmaps: np.ndarray, min_support: int, *,
     ``trace`` attaches a :class:`repro_torch.obs.Tracer`: workers, the
     dispatcher, the arena and the driver record span timelines into it
     (export with ``repro_torch.obs.write_chrome_trace``; None = off).
-    ``hosts`` > 1 runs the multi-host decomposition
+    ``mesh`` runs the same engine over device shards: an int for that
+    many logical shards on ``device``, or a list of ``torch.device``, one
+    shard each (see :func:`mesh_over_devices`). The arena keeps one set
+    of mirrors per shard, each shard has its own dispatcher and kernel
+    backend, and workers are pinned to shards; supports are identical,
+    cross-shard traffic lands in ``MiningMetrics.d2d_bytes`` and
+    ``migrations``, and ``per_device`` has one dispatcher row per shard.
+    ``hosts`` > 1 runs the multi-host decomposition instead
     (``repro_torch.core.cluster.mine_cluster``): the transaction axis
     word-partitions over N logical hosts in this process, each with its
     own arena slice on ``device``, scheduler and dispatcher, with
     two-phase support counting and cross-host steals. The supports are
     identical; the cluster traffic lands in ``MiningMetrics.net_bytes``
-    and ``steal_net``. Such a run pins ``representation="bitmap"`` and
-    ignores ``arena``.
-
-    ``mesh`` is the reference engine's multi-device option, which a
-    later slice of the port covers; here it raises
-    ``NotImplementedError``."""
+    and ``steal_net``. Such a run pins ``representation="bitmap"``,
+    ignores ``arena`` and takes no ``mesh``."""
     dev = resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError("mesh= comes with the port's "
-                                  "multi-device slice")
     if hosts > 1:
+        if mesh is not None:
+            raise ValueError("hosts= and mesh= are mutually exclusive "
+                             "(a host owns its whole slice)")
         from repro_torch.core.cluster import mine_cluster
         return mine_cluster(bitmaps, min_support, hosts=hosts, device=dev,
                             policy=policy, n_workers=n_workers,
@@ -557,7 +618,9 @@ def mine(bitmaps: np.ndarray, min_support: int, *,
                             granularity=granularity, backend=backend,
                             max_batch=max_batch, flush_us=flush_us,
                             item_counts=item_counts, tracer=trace)
-    store = BitmapArena.from_bitmaps(bitmaps, device=dev, backing=arena)
+    n_shards, devices = _resolve_mesh(mesh)
+    store = BitmapArena.from_bitmaps(bitmaps, device=dev, backing=arena,
+                                     n_shards=n_shards, devices=devices)
     t0 = time.perf_counter()
     # level 1 before the runtime spins up worker/dispatcher threads:
     # if it raises there is nothing to tear down
@@ -592,26 +655,27 @@ def mine_more(run: MiningRun, min_support: int, max_k: int,
         # per host in cluster mode: drivers are distinct threads)
         tr.set_lane("driver", sort_index=0, pid=run.runtime.trace_pid)
     if run.granularity == "depth-first":
-        _mine_depth_first(run.store, run.dispatchers[0], min_support,
+        _mine_depth_first(run.store, run.dispatchers, min_support,
                           max_k, run.sched, run.metrics, result, frequent,
                           delta=delta, model=run.model, cluster=cluster)
     else:
-        _mine_levelwise(run.store, run.dispatchers[0], min_support,
+        _mine_levelwise(run.store, run.dispatchers, min_support,
                         max_k, run.sched, run.metrics, result, frequent,
                         run.granularity, run.cache_size, run.caches,
                         sweep_joins=run.sweep_joins, delta=delta,
                         model=run.model, cluster=cluster)
 
 
-def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
+def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
                     metrics, result, frequent, granularity, cache_size,
                     caches, sweep_joins=False, delta=None, model=None,
                     cluster=None):
     """Level-synchronous engine: plan level k, spawn, barrier, plan
     level k+1 (the paper's §2 shape, at candidate or bucket grain).
     Candidate tasks join on the host directly; bucket tasks, every
-    segment-restricted sweep and, with ``sweep_joins`` (cluster runs),
-    every candidate join go through the dispatcher.
+    segment-restricted sweep and, with ``sweep_joins`` (mesh and cluster
+    runs), every candidate join go through the dispatcher of the
+    worker's shard (``dispatchers[sched.worker_device()]``).
 
     With a ``delta`` plan the level's candidates split three ways:
     *clean known* (support unchanged — zero rows touched), *dirty known*
@@ -648,7 +712,7 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
     df_miner = None
     detached_tasks: List = []
     if granularity == "auto" and model is not None and delta is None:
-        df_miner = _ClassMiner(store, dispatcher, min_support, max_k,
+        df_miner = _ClassMiner(store, dispatchers, min_support, max_k,
                                sched, metrics, result, model=model)
     prio = delta.priority_of if delta is not None else None
     tenant = delta.tenant if delta is not None else None
@@ -659,8 +723,9 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
         if c is None:
             with lock:
                 c = caches.setdefault(
-                    tid, _PrefixCache(store, cache_size, upto=upto,
-                                      model=model))
+                    tid, _PrefixCache(store, cache_size,
+                                      shard=sched.worker_device(),
+                                      upto=upto, model=model))
         return c
 
     def _prefix_handle(cache: _PrefixCache, prefix: Itemset
@@ -700,9 +765,9 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
                 st.dense_sweeps += 1
             if sweep_joins or segments is not None:
                 st.sweeps_submitted += 1
-                return int(dispatcher.sweep(ph, (cand[-1],),
-                                            segments=segments,
-                                            desc=cand[:-1])[0])
+                disp = dispatchers[sched.worker_device()]
+                return int(disp.sweep(ph, (cand[-1],), segments=segments,
+                                      desc=cand[:-1])[0])
             if sparse:
                 # cached sparse prefixes are tid-lists (never
                 # diffsets), so the gather count IS the support
@@ -715,9 +780,10 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
 
     def sweep_task(bucket: Bucket, segments=None) -> np.ndarray:
         """Bucket-granularity body: resolve the prefix handle once, then
-        one handle-based request on the dispatcher (which batches it
-        with other workers' buckets). ``segments`` restricts the sweep
-        to a segment subset. Returns [E] counts."""
+        one handle-based request on the worker's shard's dispatcher
+        (which batches it with other workers' buckets on that shard).
+        ``segments`` restricts the sweep to a segment subset. Returns [E]
+        counts."""
         cache = _thread_cache()
         ph, prows = _prefix_handle(cache, bucket.prefix)
         try:
@@ -730,8 +796,9 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
                                           * len(bucket.exts))
             else:
                 st.dense_sweeps += 1
-            return dispatcher.sweep(ph, bucket.exts, segments=segments,
-                                    desc=bucket.prefix)
+            disp = dispatchers[sched.worker_device()]
+            return disp.sweep(ph, bucket.exts, segments=segments,
+                              desc=bucket.prefix)
         finally:
             store.release(ph)
 
@@ -812,7 +879,7 @@ def _mine_levelwise(store, dispatcher, min_support, max_k, sched,
         for the host backend, as dispatcher flushes for the kernel
         backend. No prefix bitmap is ever built on the host."""
         st = sched.worker_stats()
-        counts_per_bucket = dispatcher.sweep_local(
+        counts_per_bucket = dispatchers[sched.worker_device()].sweep_local(
             [((b.prefix if len(b.prefix) > 1 else b.prefix[0]), b.exts)
              for b in chunk],
             segments=delta.segments)
@@ -992,10 +1059,10 @@ class _ClassMiner:
     every class sweep names its prefix itemset so the peers can count
     it."""
 
-    def __init__(self, store, dispatcher, min_support, max_k, sched,
+    def __init__(self, store, dispatchers, min_support, max_k, sched,
                  metrics, result, delta=None, model=None, cluster=None):
         self.store = store
-        self.dispatcher = dispatcher
+        self.dispatchers = dispatchers          # one per arena shard
         self.min_support = min_support
         self.max_k = max_k
         self.sched = sched
@@ -1076,7 +1143,7 @@ class _ClassMiner:
             k = len(prefix) + 1                 # size of swept itemsets
             shard = sched.worker_device()
             st = sched.worker_stats()
-            disp = self.dispatcher
+            disp = self.dispatchers[shard]
             # host backends mine sparse subtrees projected; a projected
             # child is a positional tid mask whose sweep reads its bools
             # however it was notionally encoded, so a diffset's smaller
@@ -1345,14 +1412,14 @@ class _ClassMiner:
         _raise_task_errors(tasks)
 
 
-def _mine_depth_first(store, dispatcher, min_support, max_k, sched,
+def _mine_depth_first(store, dispatchers, min_support, max_k, sched,
                       metrics, result, frequent, delta=None, model=None,
                       cluster=None):
     """Barrier-free engine: see :class:`_ClassMiner`. Under a cluster the
     root classes partition by owner host (the per-flush reduction makes
     every count global, so each subtree's decisions are host-independent)
     and one terminal exchange replicates the mined itemsets."""
-    miner = _ClassMiner(store, dispatcher, min_support, max_k, sched,
+    miner = _ClassMiner(store, dispatchers, min_support, max_k, sched,
                         metrics, result, delta=delta, model=model,
                         cluster=cluster)
     miner.spawn_roots(frequent, result)

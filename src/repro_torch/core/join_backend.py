@@ -8,12 +8,12 @@ bitmaps, producing E support counts in one call. Two pieces carry it:
       refcounted row store with integer handles; its device mirror is
       synced incrementally, so repeated sweeps cost ~one initial upload.
   ``SweepDispatcher``  workers enqueue handle-based ``SweepRequest``s
-      and block on a future; one dispatcher thread coalesces pending
-      requests into a padded batch and launches one kernel per
-      representation for all of them. Only the dispatcher thread touches
-      the device. Depth-first class sweeps (``sweep_bits``) take the
-      same queue on the kernel backend and run inline on the calling
-      worker on the host backend.
+      and block on a future; one dispatcher thread per arena shard
+      coalesces its pending requests into a batch and launches one kernel
+      per representation for all of them, each through a backend of its
+      own. Only the dispatcher threads touch the device. Depth-first
+      class sweeps (``sweep_bits``) take the same queue on the kernel
+      backend and run inline on the calling worker on the host backend.
 
 Backends implement the same batched API:
 
@@ -74,6 +74,10 @@ class SweepRequest:
     full-width prefix intersection first. ``prefix_handles`` is the
     prefix as a tuple either way.
 
+    ``shard`` is the arena shard the request runs on, stamped by the
+    (per-shard) dispatcher that accepted it, so the backend reads that
+    shard's mirror and books the request's foreign rows to it.
+
     ``segments`` restricts the join to a subset of the arena's
     transaction segments (None = all; ``segment_ids`` resolves it): the
     streaming engine's delta sweeps read only the freshly ingested
@@ -101,6 +105,7 @@ class SweepRequest:
     base-row handles describe themselves; single-host runs ignore it."""
     prefix_handle: "int | Tuple[int, ...]"
     ext_handles: Tuple[int, ...]
+    shard: int = 0
     segments: Optional[Tuple[int, ...]] = None
     priority: bool = False
     desc: Optional[Tuple[int, ...]] = None
@@ -110,6 +115,11 @@ class SweepRequest:
     def prefix_handles(self) -> Tuple[int, ...]:
         p = self.prefix_handle
         return p if isinstance(p, tuple) else (p,)
+
+    @property
+    def rows(self) -> Tuple[int, ...]:
+        """Every arena row the request reads."""
+        return (*self.prefix_handles, *self.ext_handles)
 
     def segment_ids(self, arena: BitmapArena) -> Tuple[int, ...]:
         if self.segments is not None:
@@ -147,7 +157,8 @@ class NumpyBackend(JoinBackend):
     batched: a flush's dense requests are grouped per segment and binned
     by padded (L, E), and each bin executes as a few wide numpy passes
     (index gather → AND-reduce → fused popcount); sparse requests gather
-    one word per tid."""
+    one word per tid. On a sharded arena each request's rows are booked
+    to its shard first (foreign reads bill ``d2d_bytes``)."""
 
     name = "numpy"
     host_parallel = True
@@ -155,6 +166,10 @@ class NumpyBackend(JoinBackend):
     PASS_BYTES = 4 << 20
 
     def sweep_many(self, arena, requests):
+        if arena.n_shards > 1:
+            # per request: a delta sweep bills only the segments it reads
+            for r in requests:
+                arena.note_access(r.shard, r.rows, segments=r.segments)
         totals: List[Optional[np.ndarray]] = [None] * len(requests)
         by_seg: Dict[int, List[int]] = {}
         for i, r in enumerate(requests):
@@ -277,14 +292,19 @@ class TorchBackend(JoinBackend):
     are all single rows passes ``[B]``. A sparse prefix's tids are
     searchsorted into the segment's tid window and rebased to it.
 
+    A flush reads the mirrors of its requests' shard; on a sharded arena
+    it names every row it reads (``needed``), so foreign rows are fetched
+    into that shard's mirror and billed to ``d2d_bytes``.
+
     Each launch stages its int32 index array (``[pidx | eidx]`` dense,
     ``[eidx | lens | tids]`` sparse) in one host buffer, pinned on a CUDA
     arena, ships it with one ``non_blocking`` copy, and reads the counts
     back with one copy into a second pinned buffer; the buffers are
-    reused and grown by the dispatcher thread. A launch covers the real
-    batch: pad lanes carry -1 and read nothing, and no request is padded
-    in. Only the sparse path's h2d bill keeps the reference's padded
-    [B', S'] size (``E_PAD_FLOOR``), computed, not shipped.
+    reused and grown by the one dispatcher thread that owns this backend
+    (each shard's dispatcher has a backend of its own). A launch covers
+    the real batch: pad lanes carry -1 and read nothing, and no request
+    is padded in. Only the sparse path's h2d bill keeps the reference's
+    padded [B', S'] size (``E_PAD_FLOOR``), computed, not shipped.
 
     An arena without a mirror (backing "numpy") takes the host-gather
     path instead: the segment's rows are gathered on the host into the
@@ -386,13 +406,23 @@ class TorchBackend(JoinBackend):
         cls._fill_eidx(eidx, requests)
         cls._gather_into(rows, eidx.ravel(), out)
 
+    @staticmethod
+    def _mirror(arena, seg, requests):
+        """The flush's shard and its mirror of segment ``seg`` (None
+        without one), synced with the rows the requests read."""
+        shard = requests[0].shard
+        needed = ([h for r in requests for h in r.rows]
+                  if arena.n_shards > 1 else None)
+        return shard, arena.device_rows(shard, needed=needed, segment=seg)
+
     def _sweep_dense(self, arena, seg, requests):
         b = len(requests)
         e = max(len(r.ext_handles) for r in requests)
         lmax = max(len(r.prefix_handles) for r in requests)
-        mirror = arena.device_rows(seg)
+        shard, mirror = self._mirror(arena, seg, requests)
         if mirror is None:
-            return self._sweep_dense_gathered(arena, seg, requests, e, lmax)
+            return self._sweep_dense_gathered(arena, seg, requests, e, lmax,
+                                              arena.shard_device(shard))
         np_ = b * lmax
         host = self._staged(mirror.device, np_ + b * e)
         self._fill_pidx(host[:np_].reshape(b, lmax), requests)
@@ -404,7 +434,7 @@ class TorchBackend(JoinBackend):
                                   idx[np_:].view(b, e),
                                   arena.seg_words(seg))))
 
-    def _sweep_dense_gathered(self, arena, seg, requests, e, lmax):
+    def _sweep_dense_gathered(self, arena, seg, requests, e, lmax, device):
         """Host-gather dense sweep of one segment: ``[prefixes [B', W] |
         exts [B', E', W]]`` staged as one array, each tuple prefix ANDed
         on the host first, billed ``(B' + B'·E')·W·4`` bytes."""
@@ -417,14 +447,14 @@ class TorchBackend(JoinBackend):
             # pad by repeating the first handle: AND-idempotent
             pidx[i] = ph + (ph[0],) * (lmax - len(ph))
         n = bp * w + bp * ep * w
-        host = self._staged(arena.device, n)
+        host = self._staged(device, n)
         self._gather_into(rows, pidx[:, 0], host[:bp * w])
         prefixes = host[:bp * w].view(np.uint32).reshape(bp, w)
         for j in range(1, lmax):
             prefixes &= rows[pidx[:, j]]
         self._gather_exts(rows, requests, bp, ep, host[bp * w:])
         arena.count_h2d((bp + bp * ep) * w * 4)
-        return self._launch(arena.device, n, lambda x: bitmap_join_many(
+        return self._launch(device, n, lambda x: bitmap_join_many(
             x[:bp * w].view(bp, w), x[bp * w:].view(bp, ep, w)))
 
     def _sweep_sparse(self, arena, seg, requests):
@@ -441,10 +471,11 @@ class TorchBackend(JoinBackend):
             i0, i1 = np.searchsorted(tids, [lo, hi])
             payloads.append(tids[i0:i1].astype(np.int64) - lo)
         s = max(1, max(len(t) for t in payloads))
-        mirror = arena.device_rows(seg)
+        shard, mirror = self._mirror(arena, seg, requests)
         if mirror is None:
             return self._sweep_sparse_gathered(arena, seg, requests,
-                                               payloads, e, s)
+                                               payloads, e, s,
+                                               arena.shard_device(shard))
         arena.count_h2d(pow2(b) * pow2(s, lo=E_PAD_FLOOR) * 4)
         n = b * e + b + b * s
         host = self._staged(mirror.device, n)
@@ -459,14 +490,15 @@ class TorchBackend(JoinBackend):
                 idx[b * e + b:].view(b, s), idx[b * e:b * e + b], mirror,
                 idx[:b * e].view(b, e), arena.seg_words(seg))))
 
-    def _sweep_sparse_gathered(self, arena, seg, requests, payloads, e, s):
+    def _sweep_sparse_gathered(self, arena, seg, requests, payloads, e, s,
+                               device):
         """Host-gather sparse sweep of one segment: ``[tids [B', S'] |
         exts [B', E', W]]`` staged as one array (tids padded with -1),
         billed ``(B'·E'·W + B'·S')·4`` bytes."""
         b, w = len(requests), arena.seg_words(seg)
         bp, ep, sp = pow2(b), pow2(e, lo=E_PAD_FLOOR), pow2(s, lo=E_PAD_FLOOR)
         n = bp * sp + bp * ep * w
-        host = self._staged(arena.device, n)
+        host = self._staged(device, n)
         tids = host[:bp * sp].reshape(bp, sp)
         tids.fill(-1)
         for i, t in enumerate(payloads):
@@ -474,7 +506,7 @@ class TorchBackend(JoinBackend):
         self._gather_exts(arena.seg_view(seg), requests, bp, ep,
                           host[bp * sp:])
         arena.count_h2d((bp * ep * w + bp * sp) * 4)
-        return self._launch(arena.device, n, lambda x: gather_intersect_many(
+        return self._launch(device, n, lambda x: gather_intersect_many(
             x[:bp * sp].view(bp, sp), x[bp * sp:].view(bp, ep, w)))
 
 
@@ -487,7 +519,7 @@ _REGISTRY: Dict[str, Callable[[], JoinBackend]] = {
 def get_backend(name: str) -> JoinBackend:
     """A new backend by name. Each call builds its own instance: a
     ``TorchBackend`` owns staging buffers that one dispatcher thread
-    reuses between launches, so two runs must not share one."""
+    reuses between launches, so two dispatchers must not share one."""
     if name not in _REGISTRY:
         raise ValueError(
             f"unknown join backend {name!r}; known: {sorted(_REGISTRY)}")
@@ -532,6 +564,12 @@ class SweepDispatcher:
     so task bodies re-raise through the scheduler's normal task-error
     machinery. ``batch_occupancy`` (requests per flush) shows whether
     batching actually happened.
+
+    ``shard`` is the arena shard this dispatcher serves: it stamps every
+    request it accepts, so its backend reads that shard's mirrors and
+    books foreign rows to it. A mesh runs one dispatcher, with a backend
+    of its own, per shard; ``n_clients`` is then the workers pinned to
+    this shard.
 
     ``cluster`` (a multi-host context, ``repro_torch.core.cluster``)
     makes every flush two-phase: partial counts over this arena's owned
@@ -582,7 +620,8 @@ class SweepDispatcher:
         return [SweepRequest(
                     (tuple(int(h) for h in p) if isinstance(p, tuple)
                      else int(p)),
-                    tuple(e), segments=segs, priority=priority)
+                    tuple(e), shard=self.shard, segments=segs,
+                    priority=priority)
                 for p, e in sweeps]
 
     def _enqueue(self, reqs: List[SweepRequest], priority: bool) -> None:
@@ -691,8 +730,8 @@ class SweepDispatcher:
         so ``flushes × occupancy == requests`` stays exact."""
         if not self.backend.host_parallel:
             return self.sweep(prefix_handle, ext_handles, desc=desc), None
-        req = SweepRequest(int(prefix_handle), tuple(ext_handles),
-                           desc=desc)
+        req = self._make_requests([(prefix_handle, ext_handles)], None)[0]
+        req.desc = desc
         with self._cv:
             if self._stop:
                 raise RuntimeError("dispatcher is stopped")
@@ -701,6 +740,9 @@ class SweepDispatcher:
         sparse = req.is_sparse(self.arena)
         t0 = time.perf_counter()
         if sparse:
+            if self.arena.n_shards > 1:
+                # the bits path reads the rows outside sweep_many
+                self.arena.note_access(self.shard, req.rows)
             out = self.backend.sweep_sparse_bits(self.arena, req)
         else:
             out = self.backend.sweep_many(self.arena, [req])[0], None

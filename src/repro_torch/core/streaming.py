@@ -31,10 +31,11 @@ that gap on top of the arena, scheduler and dispatcher:
     immutable ``PatternSnapshot`` (frequent supports and the negative
     border) and swaps it in atomically. An itemset the generation never
     counted is decomposed into a prefix-tuple + extension sweep and
-    enqueued as a PRIORITY request on the same live dispatcher the
-    refresh uses, so query sweeps coalesce into the flushes that carry
-    candidate sweeps. ``top_k`` ranks on the arena's device (torch
-    operations) once the snapshot holds ``TOPK_DEVICE_MIN`` itemsets.
+    enqueued as a PRIORITY request on the same live (per-shard)
+    dispatchers the refresh uses, so query sweeps coalesce into the
+    flushes that carry candidate sweeps. ``top_k`` ranks on the arena's
+    device (torch operations) once the snapshot holds
+    ``TOPK_DEVICE_MIN`` itemsets.
 
 Correctness anchor: after ANY ingest sequence, ``refresh()`` yields
 exactly the frequent itemsets (and supports) of a from-scratch
@@ -44,11 +45,13 @@ refreshed prefix of the database.
 
 ``StreamingMiner(hosts=N)`` runs the same stream over N word-sliced
 host arenas (``repro_torch.core.cluster``), and ``TenantHub`` multiplexes
-several tenants' streams onto one arena and one engine runtime. ``mesh``
-(the multi-device slice) raises ``NotImplementedError``.
+several tenants' streams onto one arena and one engine runtime. Both
+take ``mesh=`` as ``fpm.mine`` does: a sharded arena with one dispatcher
+per shard, and query sweeps round-robin over the shards' dispatchers.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from dataclasses import dataclass, field
@@ -61,7 +64,7 @@ import torch
 from repro_torch.core import cluster as _cluster
 from repro_torch.core import tidlist
 from repro_torch.core.fpm import (DeltaPlan, EngineRuntime, MiningMetrics,
-                                  MiningRun, mine_more)
+                                  MiningRun, _resolve_mesh, mine_more)
 from repro_torch.core.itemsets import Itemset
 from repro_torch.core.join_backend import FLUSH_US, MAX_BATCH
 from repro_torch.core.scheduler import ClusteredPolicy
@@ -333,8 +336,11 @@ def _serve_queries(owner, itemsets: Sequence[Sequence[int]]
             "hit", (time.perf_counter() - t_q) / max(len(xs), 1), n=len(xs))
         return answers
     try:
-        futs = runtime.dispatchers[0].submit_many(
-            sweeps, segments=planner.segments, priority=True)
+        # priority requests on the live per-shard dispatchers, in turn
+        disp = runtime.dispatchers[
+            next(owner._q_rr) % len(runtime.dispatchers)]
+        futs = disp.submit_many(sweeps, segments=planner.segments,
+                                priority=True)
         counts = [int(f.result()[0]) for f in futs]
     finally:
         owner._gate.end()
@@ -463,7 +469,8 @@ class RefreshReport:
     swept_full: int           # candidates fully swept (never seen)
     rows_touched: int
     bytes_swept: int
-    h2d_bytes: int            # arena gauge delta for THIS refresh
+    h2d_bytes: int            # arena gauge deltas for THIS refresh
+    d2d_bytes: int
     wall_s: float = 0.0
     # post-publish segment compaction (0 when the policy didn't fire)
     compacted_segments: int = 0
@@ -531,10 +538,12 @@ class StreamingMiner:
     ``steal_net``); queries serve through host 0's runtime, whose
     dispatcher reduction covers the peers. Compaction is off: it would
     have to renumber every host's segments in lockstep. Such a miner
-    pins ``representation="bitmap"``.
+    pins ``representation="bitmap"`` and takes no ``mesh``.
 
-    ``mesh`` is the reference's multi-device mode, which a later slice
-    of the port brings; here it raises ``NotImplementedError``."""
+    ``mesh`` accepts what ``fpm.mine`` does: None, an int (logical
+    shards on ``device``) or a list of ``torch.device``. The arena is
+    then sharded, the runtime has one dispatcher per shard, and query
+    sweeps go to the shards' dispatchers in turn."""
 
     def __init__(self, n_items: int, min_support, *,
                  initial_db: Sequence[Sequence[int]] = (),
@@ -548,12 +557,12 @@ class StreamingMiner:
                  compact_segments: int = 8,
                  compact_ratio: float = 0.5,
                  hosts: int = 1, tracer=None):
-        if mesh is not None:
-            raise NotImplementedError("StreamingMiner(mesh=) comes with "
-                                      "the port's multi-device slice")
         if n_items < 1:
             raise ValueError(f"n_items must be >= 1, got {n_items}")
         if hosts > 1:
+            if mesh is not None:
+                raise ValueError("hosts= and mesh= are mutually "
+                                 "exclusive")
             if representation not in ("auto", "bitmap"):
                 raise ValueError(
                     "hosts > 1 requires representation='bitmap' (sparse "
@@ -592,8 +601,10 @@ class StreamingMiner:
             self._hctxs = [_cluster.LoopbackContext(self._bus, h)
                            for h in range(self._hosts)]
         else:
+            n_shards, devices = _resolve_mesh(mesh)
             self.arena = BitmapArena.from_bitmaps(
-                bitmaps, device=self.device, backing=arena)
+                bitmaps, device=self.device, backing=arena,
+                n_shards=n_shards, devices=devices)
         self.n_transactions = len(initial_db)
         self._seg_tx = [len(initial_db)]   # transactions per segment
         self._item_support = item_counts
@@ -614,6 +625,7 @@ class StreamingMiner:
         self._gate = _QueryGate(self._state)
         self._runtime: Optional[EngineRuntime] = None
         self._hruntimes: Optional[List[EngineRuntime]] = None
+        self._q_rr = itertools.count()      # query dispatcher round-robin
         self.query_sweeps = 0
         self.query_sweep_bytes = 0
         self._snapshot = PatternSnapshot(0, self.n_transactions,
@@ -840,7 +852,7 @@ class StreamingMiner:
                 metrics = self._refresh_cluster(plan, item_support, ms,
                                                 singles, t0)
             else:
-                h2d0 = arena.h2d_bytes
+                h2d0, d2d0 = arena.h2d_bytes, arena.d2d_bytes
                 run = MiningRun(arena, item_counts=item_support,
                                 runtime=self._ensure_runtime(),
                                 **self._run_kw)
@@ -852,6 +864,7 @@ class StreamingMiner:
                     run.close()
                 metrics = run.finalize(t0)
                 metrics.h2d_bytes = arena.h2d_bytes - h2d0
+                metrics.d2d_bytes = arena.d2d_bytes - d2d0
 
             # exact assembly from the reuse store: skipped (clean)
             # subtrees never touched `result`, but their supports are in
@@ -883,7 +896,7 @@ class StreamingMiner:
                 swept_delta=plan.swept_delta, swept_full=plan.swept_full,
                 rows_touched=metrics.rows_touched,
                 bytes_swept=metrics.bytes_swept,
-                h2d_bytes=metrics.h2d_bytes,
+                h2d_bytes=metrics.h2d_bytes, d2d_bytes=metrics.d2d_bytes,
                 wall_s=time.perf_counter() - t0, metrics=metrics)
             # the hook observes the world just before the swap and may
             # itself ingest, so it runs OUTSIDE the state lock
@@ -928,6 +941,7 @@ class StreamingMiner:
         bus, arenas = self._bus, self._harenas
         g = bus.gauges
         h2d0 = sum(ar.h2d_bytes for ar in arenas)
+        d2d0 = sum(ar.d2d_bytes for ar in arenas)
         with g.lock:
             g0 = (g.net_bytes, g.steal_net, g.cross_steals,
                   list(g.eval_s), list(g.eval_bytes))
@@ -976,6 +990,7 @@ class StreamingMiner:
             row["eval_s"] -= g0[3][row["host"]]
             row["eval_bytes"] -= g0[4][row["host"]]
         m.h2d_bytes = sum(ar.h2d_bytes for ar in arenas) - h2d0
+        m.d2d_bytes = sum(ar.d2d_bytes for ar in arenas) - d2d0
         return m
 
     @property
@@ -1107,6 +1122,7 @@ class Tenant:
         # dispatcher): queries from every tenant coalesce
         self._state = hub._state
         self._gate = hub._gate
+        self._q_rr = hub._q_rr
         # per-tenant meters
         self.sweep_bytes = 0             # mining sweeps (refreshes)
         self.query_sweeps = 0
@@ -1225,7 +1241,7 @@ class Tenant:
                 (i,): int(s) for i, s in enumerate(item_support) if s >= ms}
             result = dict(singles)
             frequent = sorted(result)
-            h2d0 = arena.h2d_bytes
+            h2d0, d2d0 = arena.h2d_bytes, arena.d2d_bytes
             run = MiningRun(arena, item_counts=item_support,
                             runtime=runtime, **hub._run_kw)
             run.metrics.frequent += len(frequent)
@@ -1235,6 +1251,7 @@ class Tenant:
                 run.close()
             metrics = run.finalize(t0)
             metrics.h2d_bytes = arena.h2d_bytes - h2d0
+            metrics.d2d_bytes = arena.d2d_bytes - d2d0
             final = dict(singles)
             border: Dict[Itemset, int] = {}
             for x, s in known.items():
@@ -1256,7 +1273,7 @@ class Tenant:
                 swept_delta=plan.swept_delta, swept_full=plan.swept_full,
                 rows_touched=metrics.rows_touched,
                 bytes_swept=metrics.bytes_swept,
-                h2d_bytes=metrics.h2d_bytes,
+                h2d_bytes=metrics.h2d_bytes, d2d_bytes=metrics.d2d_bytes,
                 wall_s=time.perf_counter() - t0, metrics=metrics)
             if before_publish is not None:
                 before_publish(snapshot)
@@ -1311,8 +1328,8 @@ class TenantHub:
     (queries by kind, sweep bytes, flush occupancy, tasks served) surface
     through :meth:`tenant_stats`.
 
-    ``mesh`` is the reference's multi-device option, which a later slice
-    of the port brings; here it raises ``NotImplementedError``."""
+    ``mesh`` shards the hub's arena as ``fpm.mine(mesh=)`` does; every
+    tenant's queries then go to the shards' dispatchers in turn."""
 
     def __init__(self, n_items: int, *,
                  device: "torch.device | str | None" = None,
@@ -1322,9 +1339,6 @@ class TenantHub:
                  cache_size: int = 32, max_batch: int = MAX_BATCH,
                  flush_us: float = FLUSH_US, mesh=None,
                  representation: str = "auto"):
-        if mesh is not None:
-            raise NotImplementedError("TenantHub(mesh=) comes with the "
-                                      "port's multi-device slice")
         if n_items < 1:
             raise ValueError(f"n_items must be >= 1, got {n_items}")
         self.device = resolve_device(device)
@@ -1337,10 +1351,13 @@ class TenantHub:
                             representation=representation)
         # the arena starts with one empty (zero-width) segment; every
         # real segment arrives tagged through Tenant.ingest
+        n_shards, devices = _resolve_mesh(mesh)
         self.arena = BitmapArena.from_bitmaps(
-            pack_database([], n_items), device=self.device, backing=arena)
+            pack_database([], n_items), device=self.device, backing=arena,
+            n_shards=n_shards, devices=devices)
         self._state = threading.RLock()
         self._gate = _QueryGate(self._state)
+        self._q_rr = itertools.count()
         self._runtime: Optional[EngineRuntime] = None
         self._tenants: Dict[Any, Tenant] = {}
 

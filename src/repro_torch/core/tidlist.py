@@ -304,32 +304,54 @@ class BitmapArena:
 
     ``tracer`` is None (tracing off) unless an engine attaches one; a
     mirror sync that moves payload then records an ``h2d-sync`` span,
-    :meth:`count_h2d` an ``h2d`` instant and :meth:`compact` a
-    ``compaction`` span, on the calling lane.
+    :meth:`count_h2d` an ``h2d`` instant, :meth:`compact` a
+    ``compaction`` span, :meth:`migrate` a ``d2d-migrate`` span and
+    :meth:`note_access` a ``d2d`` instant, on the calling lane.
 
-    The arena holds one shard: the row-creating calls take the
-    reference's ``shard=`` argument so the engines call both arenas
-    alike, and accept only ``shard=0``.
+    Sharded mode (``n_shards`` > 1, optionally with a ``devices`` list,
+    one per shard): one set of per-segment mirrors per shard, on
+    ``devices[shard]`` or, for logical shards, all on ``device``. Pinned
+    item rows are *replicated* into every shard's mirrors; a row made by
+    :meth:`push`, :meth:`materialize` or a sparse push is *owned* by the
+    ``shard=`` that made it and lives only in its owner's mirrors. When
+    a sweep on shard *s* names a row owned by shard *t*
+    (``device_rows(s, needed=...)``), the row is fetched into *s*'s
+    mirror (from the host store) and its payload is billed to
+    ``d2d_bytes`` once per residency: the modeled cross-device traffic;
+    until then it reads as zeros there. :meth:`migrate` re-owners rows
+    (a cross-device bucket steal) and bills the same gauge. A host-only
+    ("numpy") backing keeps the same ownership and residency bookkeeping
+    through :meth:`note_access`.
 
-    Thread-safe: workers push/release concurrently; the mirrors are
-    synced by the dispatcher thread and, in a multi-host run, by the
-    peers that evaluate flushes on this slice, one sync at a time.
-    Growth reallocates the host stores, but handed-out row views keep the
-    old buffer alive and live rows are never mutated, so views stay
-    content-correct.
+    Thread-safe: workers push/release concurrently; each shard's mirrors
+    are synced by that shard's dispatcher thread and, in a multi-host
+    run, by the peers that evaluate flushes on this slice, one sync per
+    shard at a time. Growth reallocates the host stores, but handed-out
+    row views keep the old buffer alive and live rows are never mutated,
+    so views stay content-correct.
     """
 
     GROW = 2                      # capacity doubling factor
 
     def __init__(self, n_words_: int,
                  device: "torch.device | str | None" = None,
-                 capacity: int = 64, backing: str = "auto"):
+                 capacity: int = 64, backing: str = "auto",
+                 n_shards: int = 1, devices: Optional[Sequence] = None):
         if backing not in ARENA_BACKINGS:
             raise ValueError(
                 f"arena backing must be one of {ARENA_BACKINGS}, "
                 f"got {backing!r}")
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        if devices is not None and len(devices) != n_shards:
+            raise ValueError(
+                f"devices list ({len(devices)}) must match n_shards "
+                f"({n_shards})")
         self.device = resolve_device(device)
         self.backing = backing
+        self.n_shards = n_shards
+        self.devices = (None if devices is None
+                        else [resolve_device(d) for d in devices])
         # observability: None = off (the engines attach a tracer)
         self.tracer = None
         cap = max(capacity, 1)
@@ -343,6 +365,8 @@ class BitmapArena:
                                                    np.uint32)]
         self._refs = np.zeros(cap, np.int32)
         self._rep = np.zeros(cap, np.int8)        # REP_* tag per slot
+        # owning shard per row; -1 = replicated (pinned base rows)
+        self._owner = np.full(cap, -1, np.int32)
         # leading segments a row has data in (see class docstring)
         self._cover = np.zeros(cap, np.int32)
         self.n_rows = 0               # high-water mark (rows ever used)
@@ -353,18 +377,29 @@ class BitmapArena:
         # retained-bitmap memory bound)
         self.live_extra = 0
         self.peak_live_extra = 0
-        # per-segment mirror state, keyed by segment id so a fresh
-        # segment defaults to "nothing synced": rows [0, _dev_n[g]) have
-        # been placed in mirror g, and _stale[g] holds recycled slots
-        # below it whose mirror content is out of date
-        self._mirrors: Dict[int, torch.Tensor] = {}
-        self._dev_n: Dict[int, int] = {}
-        self._stale: Dict[int, set] = {}
-        # one mirror sync at a time: a cluster peer evaluates descriptor
-        # flushes on this arena from its own thread while this host's
-        # dispatcher syncs it
-        self._sync_lock = threading.Lock()
+        # per-(shard, segment) mirror state, dicts keyed by segment id so
+        # a fresh segment defaults to "nothing synced": rows [0,
+        # _dev_n[s][g]) have been placed in mirror (s, g) and are resident
+        # there unless in _invalid[s][g], which holds foreign rows never
+        # fetched and recycled slots whose mirror content is out of date
+        self._mirrors: List[Dict[int, torch.Tensor]] = [
+            {} for _ in range(n_shards)]
+        self._dev_n: List[Dict[int, int]] = [{} for _ in range(n_shards)]
+        self._invalid: List[Dict[int, set]] = [{} for _ in range(n_shards)]
+        # rows whose move to this shard was billed as d2d by migrate()
+        # but whose payload has not landed in the mirror yet: their
+        # placement is free
+        self._migrated_in: List[Dict[int, set]] = [
+            {} for _ in range(n_shards)]
+        # foreign sparse rows whose payload a shard was billed for
+        self._sparse_res: List[set] = [set() for _ in range(n_shards)]
+        # one mirror sync per shard at a time: a cluster peer evaluates
+        # descriptor flushes on this arena from its own thread while
+        # this host's dispatcher syncs it
+        self._sync_locks = [threading.Lock() for _ in range(n_shards)]
         self.h2d_bytes = 0            # bitmap payload uploaded, total
+        self.d2d_bytes = 0            # modeled cross-shard row traffic
+        self.migrations = 0           # rows re-owned by migrate()
         self.compaction_bytes = 0     # host bytes repacked by compact()
         self.compactions = 0          # compact() calls that merged
         self._sparse: dict = {}                   # handle -> uint32 tids
@@ -458,7 +493,8 @@ class BitmapArena:
             # keep their coverage and read as zeros there
             self._cover[:self.n_base] = seg + 1
         if self.backing == "jax":
-            self.device_rows(segment=seg)      # eager, W_seg only
+            for shard in range(self.n_shards):
+                self.device_rows(shard, segment=seg)   # eager, W_seg only
         return seg
 
     def compact(self, upto: int) -> int:
@@ -468,9 +504,10 @@ class BitmapArena:
         ``upto`` shift down by ``upto - 1``, and a row that covered any
         merged segment now covers the merged block (its store words
         beyond its old coverage are zero, so reads stay identical). Host
-        repack bytes are billed to ``compaction_bytes``. The mirrors are
-        merged on the device up to the least-synced row count; rows
-        beyond it re-sync (and re-bill) at the next :meth:`device_rows`.
+        repack bytes are billed to ``compaction_bytes``. Each shard's
+        mirrors are merged on its device up to their least-synced row
+        count; rows beyond it re-sync (and re-bill) at the next
+        :meth:`device_rows`.
 
         Must not run concurrently with sweeps that hold segment ids (the
         streaming engine serializes it with refresh and ingest, and
@@ -496,14 +533,16 @@ class BitmapArena:
             cov = self._cover
             self._cover = np.where(cov >= upto, cov - (upto - 1),
                                    np.minimum(cov, 1)).astype(np.int32)
-            self._merge_mirror(upto, old_w)
+            for shard in range(self.n_shards):
+                self._merge_mirror(shard, upto, old_w)
             if tr is not None:
                 tr.span("compaction", t0, cat="arena",
                         args={"merged": upto,
                               "bytes": self.n_rows * new_w * 4})
             return upto - 1
 
-    def _merge_mirror(self, upto: int, old_w: Sequence[int]) -> None:
+    def _merge_mirror(self, shard: int, upto: int,
+                      old_w: Sequence[int]) -> None:
         # caller holds self._lock
         def _remap(d: dict, merged) -> dict:
             out = {} if merged is None else {0: merged}
@@ -511,63 +550,80 @@ class BitmapArena:
                 out[g - (upto - 1)] = d[g]
             return out
 
-        nmin = min(self._dev_n.get(g, 0) for g in range(upto))
-        stale = set()
+        dn, mirrors = self._dev_n[shard], self._mirrors[shard]
+        nmin = min(dn.get(g, 0) for g in range(upto))
+        # a row invalid in ANY merged segment is invalid in the merged
+        # block; a prepaid migration into any of them stays prepaid
+        inv, mig = set(), set()
         for g in range(upto):
-            stale |= {h for h in self._stale.get(g, ()) if h < nmin}
-        blocks = [self._mirrors.get(g) for g in range(upto)]
-        if nmin > 0 and all(b is not None for b in blocks):
+            inv |= {h for h in self._invalid[shard].get(g, ()) if h < nmin}
+            mig |= self._migrated_in[shard].get(g, set())
+        self._migrated_in[shard] = _remap(self._migrated_in[shard], mig)
+        blocks = [mirrors.get(g) for g in range(upto)]
+        if not self.device_enabled:
+            # host-only: the residency bookkeeping merges, no mirrors
+            self._dev_n[shard] = _remap(dn, nmin)
+            self._invalid[shard] = _remap(self._invalid[shard], inv)
+        elif nmin > 0 and all(b is not None for b in blocks):
             # each block's first seg_words columns only: a mirror row's
             # pad words past them would land inside the merged row
             new_w = sum(old_w)
             buf = torch.zeros((max(64, blocks[0].shape[0]), pow2(new_w)),
-                              dtype=torch.int32, device=self.device)
+                              dtype=torch.int32,
+                              device=self.shard_device(shard))
             buf[:nmin, :new_w] = torch.cat(
                 [b[:nmin, :w] for b, w in zip(blocks, old_w)], dim=1)
-            self._mirrors = _remap(self._mirrors, buf)
-            self._dev_n = _remap(self._dev_n, nmin)
-            self._stale = _remap(self._stale, stale)
+            self._mirrors[shard] = _remap(mirrors, buf)
+            self._dev_n[shard] = _remap(dn, nmin)
+            self._invalid[shard] = _remap(self._invalid[shard], inv)
         else:
             # nothing fully mirrored yet: the merged block re-syncs from
             # scratch at its next device_rows
-            self._mirrors = _remap(self._mirrors, None)
-            self._dev_n = _remap(self._dev_n, None)
-            self._stale = _remap(self._stale, None)
+            self._mirrors[shard] = _remap(mirrors, None)
+            self._dev_n[shard] = _remap(dn, None)
+            self._invalid[shard] = _remap(self._invalid[shard], None)
 
     # ------------------------------------------------------------- load --
     @classmethod
     def from_bitmaps(cls, bitmaps: np.ndarray,
                      device: "torch.device | str | None" = None,
-                     backing: str = "auto") -> "BitmapArena":
+                     backing: str = "auto", n_shards: int = 1,
+                     devices: Optional[Sequence] = None) -> "BitmapArena":
         """Load packed item bitmaps as the pinned base rows (handle ==
         item id). One copy, once; ``backing="jax"`` also uploads them to
-        the mirror now."""
+        every shard's mirror now (they are replicated)."""
         n, w = bitmaps.shape
-        arena = cls(w, device, capacity=max(64, 2 * n), backing=backing)
+        arena = cls(w, device, capacity=max(64, 2 * n), backing=backing,
+                    n_shards=n_shards, devices=devices)
         arena._stores[0][:n] = bitmaps
         arena._refs[:n] = 1
         arena._cover[:n] = 1
         arena.n_rows = arena.n_base = n
         if backing == "jax":
-            arena.device_rows()
+            for shard in range(n_shards):
+                arena.device_rows(shard)
         return arena
 
     @classmethod
     def from_database(cls, db: Sequence[Sequence[int]], n_items: int,
                       device: "torch.device | str | None" = None,
-                      backing: str = "auto") -> "BitmapArena":
+                      backing: str = "auto", n_shards: int = 1,
+                      devices: Optional[Sequence] = None) -> "BitmapArena":
         """pack_database straight into the arena (no intermediate)."""
         return cls.from_bitmaps(pack_database(db, n_items), device,
-                                backing)
+                                backing, n_shards, devices)
 
     # ------------------------------------------------------ row lifecycle --
     def _alloc_slot(self) -> int:
         # caller holds self._lock
         if self._free:
             slot = self._free.pop()
-            for g, n in self._dev_n.items():
-                if slot < n:              # mirror content now out of date
-                    self._stale.setdefault(g, set()).add(slot)
+            for shard in range(self.n_shards):
+                for g, n in self._dev_n[shard].items():
+                    if slot < n:          # mirror content now out of date
+                        self._invalid[shard].setdefault(g, set()).add(slot)
+                for mig in self._migrated_in[shard].values():
+                    mig.discard(slot)     # the old row is gone
             return slot
         if self.n_rows == self._refs.shape[0]:
             cap = self.GROW * self._refs.shape[0]
@@ -581,7 +637,10 @@ class BitmapArena:
             rep[:self.n_rows] = self._rep[:self.n_rows]
             cover = np.zeros(cap, np.int32)
             cover[:self.n_rows] = self._cover[:self.n_rows]
+            owner = np.full(cap, -1, np.int32)
+            owner[:self.n_rows] = self._owner[:self.n_rows]
             self._refs, self._rep, self._cover = refs, rep, cover
+            self._owner = owner
         slot = self.n_rows
         self.n_rows += 1
         return slot
@@ -592,11 +651,11 @@ class BitmapArena:
 
     def _check_row(self, shard: int, cover: Optional[int]) -> int:
         """The coverage a new row gets: ``cover``, or every segment.
-        Raises for another shard than 0 (multi-device arenas are a later
-        slice of the port) or a coverage past the last segment."""
-        if shard != 0:
-            raise ValueError(f"this arena holds one shard; got "
-                             f"shard={shard}")
+        Raises for a shard outside the arena's or a coverage past the
+        last segment."""
+        if not 0 <= shard < self.n_shards:
+            raise ValueError(f"shard={shard} outside the arena's "
+                             f"{self.n_shards} shards")
         n = len(self._seg_words)
         if cover is None:
             return n
@@ -608,11 +667,12 @@ class BitmapArena:
     def push(self, row: np.ndarray, shard: int = 0,
              cover: Optional[int] = None) -> int:
         """Append (or recycle a slot for) one bitmap row; refcount 1.
-        Without ``cover``, ``row`` is the full-width concatenation over
-        all segments; with ``cover=c`` it spans only the first ``c``
-        segments (:meth:`n_words_upto`) and the slot is zeroed beyond —
-        a refresh pushes rows at its generation boundary even after an
-        ingest has appended newer segments."""
+        ``shard`` owns the row. Without ``cover``, ``row`` is the
+        full-width concatenation over all segments; with ``cover=c`` it
+        spans only the first ``c`` segments (:meth:`n_words_upto`) and
+        the slot is zeroed beyond — a refresh pushes rows at its
+        generation boundary even after an ingest has appended newer
+        segments."""
         with self._lock:
             cov = self._check_row(shard, cover)
             slot = self._alloc_slot()
@@ -624,6 +684,7 @@ class BitmapArena:
                 else:
                     self._stores[g][slot] = 0
             self._refs[slot] = 1
+            self._owner[slot] = shard
             self._cover[slot] = cov
             self._rep[slot] = REP_BITMAP
             self._bump_live()
@@ -633,9 +694,10 @@ class BitmapArena:
                     shard: int = 0) -> int:
         """``row(prefix) ∧ row(ext)`` written in place into a fresh slot
         — the depth-first parent→child handoff, with no floating
-        temporary. The row covers the segments both parents cover (and
-        is zeroed beyond). The device mirrors pick it up at their next
-        sync, billed like any pushed row."""
+        temporary. ``shard`` (the materializing worker's) owns it; it
+        covers the segments both parents cover (and is zeroed beyond).
+        The device mirrors pick it up at their next sync, billed like any
+        pushed row."""
         with self._lock:
             self._check_row(shard, None)
             slot = self._alloc_slot()
@@ -648,6 +710,7 @@ class BitmapArena:
                 else:
                     store[slot] = 0
             self._refs[slot] = 1
+            self._owner[slot] = shard
             self._cover[slot] = cov
             self._rep[slot] = REP_BITMAP
             self._bump_live()
@@ -662,6 +725,7 @@ class BitmapArena:
             cov = self._check_row(shard, cover)
             slot = self._alloc_slot()
             self._refs[slot] = 1
+            self._owner[slot] = shard
             self._cover[slot] = cov
             self._rep[slot] = rep
             self._sparse[slot] = t
@@ -817,6 +881,8 @@ class BitmapArena:
                     self.sparse_bytes_live -= t.nbytes
                     self._ssupport.pop(handle, None)
                     self._rep[handle] = REP_BITMAP
+                    for res in self._sparse_res:
+                        res.discard(handle)
                     return self._anchor.pop(handle, None)
             elif self._refs[handle] < 0:
                 raise RuntimeError(f"double release of handle {handle}")
@@ -902,66 +968,235 @@ class BitmapArena:
     def device_enabled(self) -> bool:
         return self.backing != "numpy"
 
-    def device_rows(self, segment: int = 0) -> Optional[torch.Tensor]:
-        """Segment ``segment``'s device mirror ``[n_rows,
-        seg_mirror_words]`` int32, synced incrementally (the dispatcher
-        thread calls this, and a cluster peer's evaluator); None for a
-        host-only ("numpy") backing.
+    def shard_device(self, shard: int) -> torch.device:
+        """Where shard ``shard``'s mirrors live: its entry of
+        ``devices``, or ``device`` for logical shards."""
+        return self.device if self.devices is None else self.devices[shard]
 
-        Rows new to this mirror and its recycled slots are written; a
-        live word-column row covering the segment is billed ``4 *
-        seg_words`` bytes to ``h2d_bytes``, and a dead, uncovered or
-        sparse slot is written as zeros, unbilled. So an ingest that
-        appended segment g uploads ``seg_nbytes(g)`` and never the older
-        segments. Each mirror is ONE capacity-doubling buffer updated in
-        place with ``index_copy_``: a sync moves only the changed rows,
-        where a functional update would copy the whole mirror. Syncs
-        serialize on one lock."""
+    def owner_of(self, handle: int) -> int:
+        """Owning shard of a row; -1 for replicated (pinned base) rows."""
+        if handle < self.n_base:
+            return -1
+        return int(self._owner[handle])
+
+    def migrate(self, handles: Sequence[int], dst: int) -> int:
+        """Re-owner rows onto shard ``dst`` — the explicit transfer
+        behind a cross-device bucket steal. A row's payload is billed to
+        ``d2d_bytes`` once per crossing: a row ``dst`` already holds in
+        its mirror flips owner for free, and a row billed here lands in
+        ``dst``'s mirror later at no further h2d or d2d cost. Pinned base
+        rows are replicated and never move. Returns the rows moved."""
+        moved = 0
+        tr = self.tracer
+        t0 = time.perf_counter() if tr is not None else 0.0
+        d2d0 = self.d2d_bytes
+        with self._lock:
+            dn, inv = self._dev_n[dst], self._invalid[dst]
+            mig = self._migrated_in[dst]
+            for h in handles:
+                if h < self.n_base or int(self._owner[h]) == dst:
+                    continue
+                self._owner[h] = dst
+                if self._rep[h] != REP_BITMAP:
+                    # sparse payload crosses once, at its actual size
+                    if h not in self._sparse_res[dst]:
+                        self.d2d_bytes += self._sparse[h].nbytes
+                        self._sparse_res[dst].add(h)
+                else:
+                    for g in range(int(self._cover[h])):
+                        wb = self._seg_words[g] * 4
+                        if wb and not (h < dn.get(g, 0)
+                                       and h not in inv.get(g, ())):
+                            self.d2d_bytes += wb
+                            mig.setdefault(g, set()).add(h)
+                self.migrations += 1
+                moved += 1
+        if tr is not None and moved:
+            tr.span("d2d-migrate", t0, cat="arena",
+                    args={"rows": moved, "dst": dst,
+                          "bytes": self.d2d_bytes - d2d0})
+        return moved
+
+    def _sync_plan(self, shard: int, seg: int,
+                   needed: Optional[Sequence[int]]
+                   ) -> Tuple[int, int, List[int], int, List[int],
+                              List[int]]:
+        """Advance mirror (shard, seg)'s bookkeeping to ``n_rows`` and
+        sort its work (caller holds the lock). Returns ``(lo, n,
+        fresh_owned, fresh_h2d, reupload, fetch)``: rows [lo, n) are new
+        to the mirror, of which ``fresh_owned`` (owned by the shard or
+        replicated, live, covering the segment, word-column) carry
+        payload, ``fresh_h2d`` of them billed as h2d (the rest were
+        prepaid by :meth:`migrate`), and the others enter ``_invalid``;
+        ``reupload`` are owned rows whose mirror content went stale,
+        billed as h2d; ``fetch`` are rows placed without an h2d bill:
+        foreign rows ``needed`` now (billed to ``d2d_bytes`` here, once
+        per residency), prepaid migrations, and dead, uncovered or
+        sparse rows, which carry no payload. Without ``needed`` every
+        stale owned row is refreshed and foreign rows wait."""
+        n = self.n_rows
+        lo = self._dev_n[shard].get(seg, 0)
+        inv = self._invalid[shard].setdefault(seg, set())
+        mig = self._migrated_in[shard].setdefault(seg, set())
+        fresh_owned: List[int] = []
+        fresh_h2d = 0
+
+        def _live(h: int) -> bool:
+            return h < self.n_base or int(self._refs[h]) > 0
+
+        def _owned(h: int) -> bool:
+            return h < self.n_base or int(self._owner[h]) in (-1, shard)
+
+        for h in range(lo, n):
+            if (_owned(h) and _live(h) and self._covered(h, seg)
+                    and self._rep[h] == REP_BITMAP):
+                fresh_owned.append(h)
+                if h in mig:              # transfer billed by migrate
+                    mig.discard(h)
+                else:
+                    fresh_h2d += 1
+            else:
+                inv.add(h)
+        self._dev_n[shard][seg] = n
+        reupload: List[int] = []
+        fetch: List[int] = []
+        row_bytes = self._seg_words[seg] * 4
+
+        def _classify(h: int) -> None:
+            inv.discard(h)
+            if (not (_live(h) and self._covered(h, seg))
+                    or self._rep[h] != REP_BITMAP):
+                fetch.append(h)           # no word-column payload
+            elif _owned(h):
+                if h in mig:              # prepaid migration landing
+                    mig.discard(h)
+                    fetch.append(h)
+                else:
+                    reupload.append(h)
+            else:
+                fetch.append(h)
+                self.d2d_bytes += row_bytes
+
+        if needed is not None:
+            for h in set(needed):
+                if h in inv:
+                    _classify(h)
+        else:
+            for h in sorted(inv):
+                if _owned(h):
+                    _classify(h)
+        return lo, n, fresh_owned, fresh_h2d, reupload, fetch
+
+    def note_access(self, shard: int, handles: Sequence[int],
+                    segments: Optional[Sequence[int]] = None) -> None:
+        """Residency and d2d bookkeeping for host-only sweeps: a sweep on
+        ``shard`` reading a row owned elsewhere bills one cross-shard
+        fetch to ``d2d_bytes``, after which the row is resident there
+        until its slot recycles. ``segments`` restricts the bill to the
+        segments actually swept. A device-backed arena does the same
+        bookkeeping, and the mirror writes, in :meth:`device_rows`."""
+        if self.n_shards == 1:
+            return
+        tr = self.tracer
+        d2d0 = self.d2d_bytes
+        with self._lock:
+            self._note_sparse(shard, handles)
+            for g in (segments if segments is not None
+                      else range(len(self._seg_words))):
+                self._sync_plan(shard, g, handles)
+        if tr is not None and self.d2d_bytes != d2d0:
+            tr.instant("d2d", cat="arena",
+                       args={"shard": shard,
+                             "bytes": self.d2d_bytes - d2d0})
+
+    def _note_sparse(self, shard: int, handles: Sequence[int]) -> None:
+        """A foreign tid/diffset payload read by ``shard`` is billed to
+        ``d2d_bytes`` once per residency, at its actual size (caller
+        holds the lock)."""
+        res = self._sparse_res[shard]
+        for h in set(handles):
+            if (self._rep[h] != REP_BITMAP and h not in res
+                    and int(self._owner[h]) not in (-1, shard)):
+                t = self._sparse.get(h)
+                if t is not None:
+                    self.d2d_bytes += t.nbytes
+                    res.add(h)
+
+    def device_rows(self, shard: int = 0,
+                    needed: Optional[Sequence[int]] = None,
+                    segment: int = 0) -> Optional[torch.Tensor]:
+        """Shard ``shard``'s mirror of segment ``segment``, ``[n_rows,
+        seg_mirror_words]`` int32 on :meth:`shard_device`, synced
+        incrementally (by that shard's dispatcher thread, and a cluster
+        peer's evaluator); None for a host-only ("numpy") backing, which
+        books ``needed`` through :meth:`note_access` instead.
+
+        ``needed`` lists the handles the caller is about to read:
+        foreign rows among them are fetched into this mirror and billed
+        to ``d2d_bytes``; a foreign row not yet fetched reads as zeros.
+        Rows new to the mirror and its stale owned slots are written; an
+        owned live word-column row covering the segment is billed ``4 *
+        seg_words`` bytes to ``h2d_bytes`` (unless a migration prepaid
+        it), and a dead, uncovered or sparse slot is written as zeros,
+        unbilled. So an ingest that appended segment g uploads
+        ``seg_nbytes(g)`` per shard and never the older segments. Each
+        mirror is ONE capacity-doubling buffer updated in place with
+        ``index_copy_``: a sync moves only the changed rows. Syncs of
+        one shard serialize on its lock."""
         if not self.device_enabled:
+            if needed is not None:
+                self.note_access(shard, needed, segments=(segment,))
             return None
-        with self._sync_lock:
-            return self._sync(segment)
+        with self._sync_locks[shard]:
+            return self._sync(shard, segment, needed)
 
-    def _sync(self, segment: int) -> torch.Tensor:
+    def _sync(self, shard: int, segment: int,
+              needed: Optional[Sequence[int]]) -> torch.Tensor:
         tr = self.tracer
         t_sync = time.perf_counter() if tr is not None else 0.0
         w = self._seg_words[segment]
+        dev = self.shard_device(shard)
         with self._lock:
-            n = self.n_rows
-            stale = self._stale.setdefault(segment, set())
-            todo = sorted(stale.union(
-                range(self._dev_n.get(segment, 0), n)))
-            billed = [h for h in todo
-                      if (h < self.n_base or self._refs[h] > 0)
-                      and self._rep[h] == REP_BITMAP
-                      and self._covered(h, segment)]
+            if needed is not None:
+                self._note_sparse(shard, needed)
+            lo, n, fresh_owned, fresh_h2d, reupload, fetch = \
+                self._sync_plan(shard, segment, needed)
+            # row -> whether it carries payload; a later entry wins (a
+            # fresh foreign row may also be fetched in this sync)
+            write = dict.fromkeys(range(lo, n), False)
+            write.update(dict.fromkeys(fresh_owned, True))
+            write.update(dict.fromkeys(reupload, True))
+            for h in fetch:
+                write[h] = bool((h < self.n_base or self._refs[h] > 0)
+                                and self._rep[h] == REP_BITMAP
+                                and self._covered(h, segment))
+            todo = sorted(write)
             payload = np.zeros((len(todo), w), np.uint32)
-            if billed:
-                keep = np.isin(todo, billed)
-                payload[keep] = self._stores[segment][billed]
-            stale.clear()
-            self._dev_n[segment] = n
-        mirror = self._mirrors.get(segment)
+            real = [h for h in todo if write[h]]
+            if real:
+                payload[[write[h] for h in todo]] = \
+                    self._stores[segment][real]
+        mirrors = self._mirrors[shard]
+        mirror = mirrors.get(segment)
         if mirror is None or mirror.shape[0] < n:
             cap = max(64, n, 0 if mirror is None else 2 * mirror.shape[0])
             grown = torch.zeros((cap, pow2(w)), dtype=torch.int32,
-                                device=self.device)
+                                device=dev)
             if mirror is not None:
                 grown[:mirror.shape[0]].copy_(mirror)
-            mirror = self._mirrors[segment] = grown
+            mirror = mirrors[segment] = grown
         if todo and w:
-            idx = torch.as_tensor(todo, dtype=torch.int64).to(self.device)
-            mirror[:, :w].index_copy_(0, idx,
-                                      to_device_words(payload, self.device))
-        if billed and w:
-            nbytes = len(billed) * w * 4
+            idx = torch.as_tensor(todo, dtype=torch.int64).to(dev)
+            mirror[:, :w].index_copy_(0, idx, to_device_words(payload, dev))
+        nbytes = (fresh_h2d + len(reupload)) * w * 4
+        if nbytes:
             with self._lock:
                 self.h2d_bytes += nbytes
             if tr is not None:
                 # only syncs that moved payload get a span: the
                 # steady-state no-op sync stays invisible
                 tr.span("h2d-sync", t_sync, cat="arena",
-                        args={"shard": 0, "segment": segment,
+                        args={"shard": shard, "segment": segment,
                               "bytes": nbytes})
         return mirror[:n]
 
@@ -978,4 +1213,5 @@ class BitmapArena:
     def __repr__(self) -> str:
         return (f"<BitmapArena rows={self.n_rows} base={self.n_base} "
                 f"live_extra={self.live_extra} backing={self.backing} "
-                f"segments={self.n_segments} device={self.device}>")
+                f"shards={self.n_shards} segments={self.n_segments} "
+                f"device={self.device}>")

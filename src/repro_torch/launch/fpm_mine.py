@@ -19,6 +19,11 @@ reducing every flush through a TCPStore this process hosts):
     PYTHONPATH=src python -m repro_torch.launch.fpm_mine --dataset t10i4 \
         --hosts 2 --max-k 8
 
+Example (two device shards: the first two CUDA devices, or two logical
+shards on the one card when the host has fewer):
+    PYTHONPATH=src python -m repro_torch.launch.fpm_mine --dataset t10i4 \
+        --mesh 2 --policies clustered --max-k 8
+
 The mines run on the CUDA card unless ``--device cpu`` is given; without
 a card and without ``--device`` the launcher raises ``RuntimeError``
 before it builds any data.
@@ -38,16 +43,13 @@ from typing import Optional, Sequence
 import numpy as np
 
 from repro_torch.core.buckets import REPRESENTATIONS
-from repro_torch.core.fpm import GRANULARITIES, mine, mine_serial
+from repro_torch.core.fpm import (GRANULARITIES, mesh_over_devices, mine,
+                                  mine_serial)
 from repro_torch.core.streaming import PatternServer, StreamingMiner
 from repro_torch.core.tidlist import (ARENA_BACKINGS, pack_database,
                                       resolve_device)
 from repro_torch.data.transactions import PROFILES, load
 from repro_torch.obs import Tracer, summary_table, write_chrome_trace
-
-# the flag of the reference launcher whose mode a later slice of the
-# port brings, and that slice
-LATER_SLICES = {"mesh": "multi-device"}
 
 
 def _finish_trace(args, tracer, wall_s: float) -> None:
@@ -94,6 +96,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "mirror), jax (eager upload to the device), "
                          "numpy (host-only; the kernel backend re-uploads "
                          "per batch — the transfer-bound baseline)")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="run the engine over N device shards (sharded "
+                         "arena, one dispatcher per shard, shard-affine "
+                         "workers): the first N CUDA devices when the "
+                         "host has them, N logical shards on --device "
+                         "otherwise; 0 = shared-memory run")
     ap.add_argument("--max-batch", type=int, default=32,
                     help="sweep dispatcher: max requests per batched "
                          "kernel launch")
@@ -142,10 +150,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help=argparse.SUPPRESS)
     ap.add_argument("--_coordinator", default=None,
                     help=argparse.SUPPRESS)
-    for flag, slice_ in LATER_SLICES.items():
-        ap.add_argument(f"--{flag}", type=int, default=0, metavar="N",
-                        help=f"the reference launcher's {flag} mode; the "
-                             f"port's {slice_} slice brings it")
     return ap.parse_args(argv)
 
 
@@ -222,7 +226,7 @@ def _rank(args, bitmaps, ms, device) -> None:
           f"equals mine_serial")
 
 
-def _stream(args, db, n_items, ms, ref, device, tracer) -> None:
+def _stream(args, db, n_items, ms, ref, device, mesh, tracer) -> None:
     """``--stream``: mine the head of the dataset, replay its tail as
     ``args.stream`` ingest+refresh rounds, check the final generation
     against ``mine_serial``, then (``--serve``) time the queries."""
@@ -234,7 +238,8 @@ def _stream(args, db, n_items, ms, ref, device, tracer) -> None:
                         max_k=args.max_k, granularity=args.granularity,
                         backend=args.backend, arena=args.arena,
                         max_batch=args.max_batch, flush_us=args.flush_us,
-                        representation=args.representation, tracer=tracer)
+                        mesh=mesh, representation=args.representation,
+                        tracer=tracer)
     try:
         t_stream0 = time.perf_counter()
         rep = sm.refresh()
@@ -305,11 +310,10 @@ def _serve(args, srv, sm, top, n_items: int) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
-    for flag, slice_ in LATER_SLICES.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} comes with the port's {slice_} slice")
     device = resolve_device(args.device)
+    if args.hosts >= 2 and args.mesh:
+        raise ValueError("hosts= and mesh= are mutually exclusive (a host "
+                         "owns its whole slice)")
     # as in the reference launcher, --hosts 1 is one process
     if args.hosts >= 2 and args._rank is None:
         return _spawn_hosts(args)
@@ -326,6 +330,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         _rank(args, bitmaps, ms, device)
         return
 
+    mesh = mesh_over_devices(args.mesh)
+    if mesh is not None:
+        print(f"mesh: {args.mesh} device shards "
+              f"({'logical' if isinstance(mesh, int) else 'cuda devices'})")
+
     t0 = time.time()
     ref = mine_serial(bitmaps, ms, max_k=args.max_k)
     t_serial = time.time() - t0
@@ -334,7 +343,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     tracer = (Tracer() if (args.trace or args.trace_summary)
               else None)
     if args.stream:
-        _stream(args, db, n_items, ms, ref, device, tracer)
+        _stream(args, db, n_items, ms, ref, device, mesh, tracer)
         return
     traced_wall = 0.0
     for policy in args.policies:
@@ -343,7 +352,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         granularity=args.granularity,
                         backend=args.backend, arena=args.arena,
                         max_batch=args.max_batch, flush_us=args.flush_us,
-                        representation=args.representation,
+                        mesh=mesh, representation=args.representation,
                         item_counts=item_counts, trace=tracer)
         traced_wall += met.wall_s
         if res != ref:
@@ -359,6 +368,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         if met.flushes:
             line += (f" batch_occ={met.batch_occupancy:4.2f} "
                      f"flushes={met.flushes} h2d={met.h2d_bytes}B")
+        if met.n_devices > 1:
+            occ = "/".join(f"{d['batch_occupancy']:.2f}"
+                           for d in met.per_device)
+            line += (f" d2d={met.d2d_bytes}B migrations={met.migrations} "
+                     f"dev_occ={occ}")
         if args.granularity == "depth-first":
             line += (f" peak_retained={met.peak_retained_bitmaps}"
                      f" ({met.peak_bytes_retained} B)")

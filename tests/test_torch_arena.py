@@ -160,18 +160,18 @@ def test_arena_without_device_raises_when_no_cuda(monkeypatch):
 
 
 def test_arena_holds_one_shard_and_one_segment():
-    """A loaded arena holds one segment until an ingest adds one; it
-    holds one shard always (multi-device arenas are a later slice), and
-    a row cannot cover segments the arena does not have."""
+    """A loaded arena holds one segment until an ingest adds one; without
+    ``n_shards`` it holds one shard, so no row can be owned by another,
+    and a row cannot cover segments the arena does not have."""
     arena = BitmapArena.from_bitmaps(words((3, 2)), device="cpu")
     assert arena.n_segments == 1
     h = arena.push(words(2), shard=0, cover=1)
     assert arena.cover_of(h) == arena.cover_of(0) == 1
-    with pytest.raises(ValueError, match="one shard"):
+    with pytest.raises(ValueError, match="outside the arena's 1 shards"):
         arena.push(words(2), shard=1)
     with pytest.raises(ValueError, match="outside the arena's 1 segments"):
         arena.push_tids(np.array([1, 5], np.uint32), cover=2)
-    with pytest.raises(ValueError, match="one shard"):
+    with pytest.raises(ValueError, match="outside the arena's 1 shards"):
         arena.materialize(0, 1, shard=1)
     arena.add_segment(words((3, 1)))
     assert arena.n_segments == 2 and arena.cover_of(0) == 2
@@ -437,7 +437,7 @@ def test_kernel_backend_takes_the_gathered_forms_without_a_mirror(
 def mirrored_rows(port, seg):
     """Segment ``seg``'s mirror as uint32 rows at the segment's width."""
     return from_device_words(
-        port.device_rows(seg)[:, :port.seg_words(seg)].contiguous())
+        port.device_rows(segment=seg)[:, :port.seg_words(seg)].contiguous())
 
 
 def test_segment_helpers_equal_reference():
@@ -540,12 +540,12 @@ def test_segment_mirrors_bill_and_merge_like_reference(backing):
     for g in range(port.n_segments):
         m = mirrored_rows(port, g)
         assert m.shape == (port.n_rows, port.seg_words(g))
-        assert port.device_rows(g).shape[1] == port.seg_mirror_words(g)
+        assert port.device_rows(segment=g).shape[1] == port.seg_mirror_words(g)
         for hp, _ in live:
             if port.rep_of(hp) == ttl.REP_BITMAP:
                 np.testing.assert_array_equal(m[hp], port.seg_row(g, hp))
             else:
                 assert not m[hp].any()
         # the pad words past the segment's width stay zero after merges
-        assert not port.device_rows(g)[:, port.seg_words(g):].any()
+        assert not port.device_rows(segment=g)[:, port.seg_words(g):].any()
     assert port.h2d_bytes == ref.h2d_bytes

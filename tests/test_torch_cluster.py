@@ -261,9 +261,9 @@ def test_streaming_cluster_rejects_mesh_and_diffsets():
     with pytest.raises(ValueError, match="bitmap"):
         StreamingMiner(N_ITEMS, 5, hosts=2, representation="sparse",
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(ValueError, match="mutually exclusive"):
         StreamingMiner(N_ITEMS, 5, hosts=2, mesh=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(ValueError, match="mutually exclusive"):
         mine(np.ones((3, 2), np.uint32), 1, hosts=2, mesh=2, device="cpu")
     with pytest.raises(ValueError, match="hosts >= 2"):
         tcluster.mine_cluster(np.ones((3, 2), np.uint32), 1, hosts=1,

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.core.tidlist import (pack_database, popcount32,
+from repro_torch.core.tidlist import (BitmapArena, from_device_words,
+                                      pack_database, popcount32,
                                       to_device_words)
 from repro_torch.kernels.bitmap_join import ops as bj
 from repro_torch.kernels.bitmap_join.ref import (bitmap_join_many_ref,
@@ -312,7 +313,6 @@ def test_segment_mirrors_merge_on_card_after_compact(cuda):
     mirror holds each live dense row's words at the merged width with
     zero pad words, and a sweep over it counts what the host does."""
     from repro_torch.core import join_backend as jb
-    from repro_torch.core.tidlist import BitmapArena, from_device_words
     rng = np.random.default_rng(2)
     segs = [rng.integers(0, 2 ** 32, size=(12, w), dtype=np.uint32)
             for w in (37, 5, 11)]
@@ -324,7 +324,7 @@ def test_segment_mirrors_merge_on_card_after_compact(cuda):
     # reaches its mirror at the next sync
     assert arena.h2d_bytes == 12 * (37 + 5 + 11) * 4
     for g in range(3):
-        arena.device_rows(g)
+        arena.device_rows(segment=g)
     assert arena.h2d_bytes == 12 * (37 + 5 + 11) * 4 + 37 * 4
     assert arena.compact(3) == 2
     merged = arena.device_rows(0)
@@ -415,7 +415,6 @@ def test_top_k_on_card_equals_host_on_ties(cuda, monkeypatch, prefix, k):
 def _peer_slice(dev):
     """A segmented slice (widths 37, 0 and 5 words) on ``dev``, with its
     words on the host."""
-    from repro_torch.core.tidlist import BitmapArena
     segs = [RNG.integers(0, 2 ** 32, size=(24, w), dtype=np.uint32)
             for w in (37, 0, 5)]
     arena = BitmapArena.from_bitmaps(segs[0], device=dev)
@@ -492,3 +491,87 @@ def test_streaming_cluster_and_tenants_on_card(cuda):
             pack_database(db[:1500], 40), 40, max_k=3)
         assert dict(tb.snapshot.supports) == repro_torch.mine_serial(
             pack_database(db[1500:], 40), 40, max_k=3)
+
+
+def _shard_launches(monkeypatch):
+    """Counts each batched indexed launch by the shard whose mirror the
+    entry was handed: {(kernel, shard): launches}."""
+    import threading
+    from repro_torch.core import join_backend as jb
+    seen, local = collections.Counter(), threading.local()
+    sweep_many = jb.TorchBackend.sweep_many
+
+    def swept(backend, arena, requests):
+        local.arena = arena
+        return sweep_many(backend, arena, requests)
+
+    def spy(name):
+        fn = getattr(jb, name)
+
+        def call(*args):
+            arena = local.arena
+            owner = [s for s in range(arena.n_shards)
+                     for m in arena._mirrors[s].values()
+                     if m.data_ptr() == args[2].data_ptr()]
+            assert len(owner) == 1
+            seen[(name, owner[0])] += 1
+            return fn(*args)
+        return call
+
+    monkeypatch.setattr(jb.TorchBackend, "sweep_many", swept)
+    for name in ("bitmap_join_many_rows", "gather_intersect_many_rows"):
+        monkeypatch.setattr(jb, name, spy(name))
+    return seen
+
+
+@pytest.mark.parametrize("granularity", ["bucket", "depth-first"])
+def test_mesh_mine_on_card_launches_on_both_shard_mirrors(
+        cuda, monkeypatch, granularity):
+    bm, counts = _small_db()
+    seen = _shard_launches(monkeypatch)
+    got, met = repro_torch.mine(bm, 40, max_k=4, item_counts=counts,
+                                granularity=granularity, mesh=2)
+    assert got == repro_torch.mine_serial(bm, 40, max_k=4)
+    assert met.n_devices == 2 and len(met.per_device) == 2
+    assert all(d["flushes"] > 0 for d in met.per_device)
+    for shard in (0, 1):
+        assert seen[("bitmap_join_many_rows", shard)] > 0
+        assert seen[("gather_intersect_many_rows", shard)] > 0
+    assert met.d2d_bytes % 4 == 0
+
+
+def test_sharded_device_rows_on_card_equal_cpu_arena(cuda):
+    rows = RNG.integers(0, 2 ** 32, size=(6, 37), dtype=np.uint32)
+    arenas = [BitmapArena.from_bitmaps(rows, device=d, n_shards=2)
+              for d in (cuda, "cpu")]
+    for a in arenas:
+        h = a.materialize(0, 1, shard=0)
+        t = a.push_tids(np.array([3, 64, 900], np.uint32), shard=0)
+        a.device_rows(1, needed=[0, 2])
+        a.migrate([a.materialize(2, 3, shard=0)], dst=1)
+    got, want = (a.device_rows(1, needed=[h, t, 2]) for a in arenas)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+    assert len({(a.d2d_bytes, a.h2d_bytes, a.migrations)
+                for a in arenas}) == 1
+    assert (from_device_words(got[h, :37].contiguous())
+            == rows[0] & rows[1]).all()
+
+
+def test_shard_dispatchers_stage_in_distinct_pinned_buffers(cuda):
+    from repro_torch.core import fpm
+    bm, counts = _small_db(2000)
+    store = BitmapArena.from_bitmaps(bm, n_shards=2)
+    run = fpm.MiningRun(store, policy="clustered", n_workers=4,
+                        granularity="bucket", cache_size=8,
+                        item_counts=counts)
+    result, frequent = fpm._level1(bm, 40, counts=counts)
+    try:
+        fpm.mine_more(run, 40, 3, result, frequent)
+    finally:
+        run.close()
+    backends = [d.backend for d in run.dispatchers]
+    assert backends[0] is not backends[1]
+    bufs = [b._stage for b in backends] + [b._counts for b in backends]
+    assert all(buf.is_pinned() for buf in bufs)
+    assert len({buf.data_ptr() for buf in bufs}) == 4

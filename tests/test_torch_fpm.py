@@ -1,10 +1,12 @@
 """The port's batch mining end to end against the reference engine on
 the same inputs — supports and every deterministic gauge, at bucket,
 candidate, depth-first and auto granularity — plus the device rule, the
-option a later slice covers, and the rule that the port imports neither
-JAX nor the reference package."""
+mesh entry points, and the rule that the port imports neither JAX nor
+the reference package."""
 import ast
 import itertools
+import re
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -14,9 +16,12 @@ import torch
 import repro_torch
 from repro.core import fpm as rfpm
 from repro.core import tidlist as rtl
+from repro.core import streaming as rs
 from repro.core.streaming import StreamingMiner as RStreamingMiner
+from repro.launch import fpm_mine as rlaunch
 from repro_torch.core import fpm as tfpm
 from repro_torch.core import join_backend as tjb
+from repro_torch.core import streaming as ts
 from repro_torch.core.streaming import StreamingMiner, TenantHub
 from repro_torch.core.tidlist import BitmapArena, pack_database
 from repro_torch.data import transactions as tt
@@ -239,28 +244,90 @@ def test_mine_without_device_raises_when_no_cuda(monkeypatch):
         repro_torch.mine(bm, 1, device="cuda", backend="numpy")
 
 
+def _mesh_stream(mod, db, **kw):
+    """Supports after a refresh, an ingest and a second refresh of a
+    two-shard ``StreamingMiner`` on ``mod``."""
+    kw = {"device": "cpu", **kw} if mod is ts else {"backend": "numpy",
+                                                      **kw}
+    sm = mod.StreamingMiner(12, 20, initial_db=db[:150], n_workers=3,
+                            max_k=4, mesh=2, **kw)
+    try:
+        sm.refresh()
+        sm.ingest(db[150:])
+        rep = sm.refresh()
+        assert sm.arena.n_shards == 2 and rep.d2d_bytes >= 0
+        return dict(sm.snapshot.supports)
+    finally:
+        sm.close()
+
+
+def _mesh_hub(mod, db):
+    """Each tenant's final snapshot on a two-shard ``TenantHub``."""
+    kw = {"device": "cpu"} if mod is ts else {"backend": "numpy"}
+    with mod.TenantHub(12, n_workers=3, max_k=4, mesh=2, **kw) as hub:
+        out = {}
+        for tid, part in (("a", db[:120]), ("b", db[120:])):
+            t = hub.tenant(tid, 15)
+            t.ingest(part[:80])
+            t.refresh()
+            t.ingest(part[80:])
+            t.refresh()
+            out[tid] = dict(t.snapshot.supports)
+        assert hub.arena.n_shards == 2
+        return out
+
+
 @pytest.mark.parametrize("kwargs", [
     {"mesh": 2}, {"hosts": 2, "mesh": 2}, {"stream_mesh": 2},
     {"hub_mesh": 2}, {"launcher_mesh": 2}])
-def test_later_slices_raise_not_implemented(kwargs):
-    """Meshes wait for a later slice: a batch mine (also with hosts, which
-    run since the cluster slice), a streaming miner, a tenant hub and the
-    launcher's --mesh all raise."""
-    bm = np.ones((3, 2), np.uint32)
+def test_later_slices_raise_not_implemented(kwargs, capsys, monkeypatch):
+    """The mesh entry points, which raised before the multi-device slice,
+    run on the CPU and give the reference's results: a batch mine, a
+    streaming miner, a tenant hub and the launcher's --mesh; hosts with
+    mesh raise the reference's ValueError."""
+    rng = np.random.default_rng(5)
+    db = [sorted(rng.choice(12, size=rng.integers(2, 6),
+                            replace=False).tolist()) for _ in range(240)]
+    bm = pack_database(db, 12)
     if "stream_mesh" in kwargs:
-        for hosts in (1, 2):
-            with pytest.raises(NotImplementedError, match="multi-device"):
-                StreamingMiner(3, 1, device="cpu", mesh=2, hosts=hosts)
+        got = _mesh_stream(ts, db)
+        assert got == _mesh_stream(rs, db)
+        assert got == rfpm.mine_serial(bm, 20, max_k=4)
+        for mod, kw in ((ts, {"device": "cpu"}), (rs, {})):
+            with pytest.raises(ValueError, match="mutually exclusive"):
+                mod.StreamingMiner(12, 1, mesh=2, hosts=2, **kw)
     elif "hub_mesh" in kwargs:
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            TenantHub(3, device="cpu", mesh=2)
+        got = _mesh_hub(ts, db)
+        assert got == _mesh_hub(rs, db)
+        for tid, part in (("a", db[:120]), ("b", db[120:])):
+            assert got[tid] == rfpm.mine_serial(pack_database(part, 12), 15,
+                                                max_k=4)
     elif "launcher_mesh" in kwargs:
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            fpm_mine.main(["--dataset", "chess", "--device", "cpu",
-                           "--mesh", "2"])
+        args = ["--dataset", "chess", "--max-k", "2", "--workers", "2",
+                "--policies", "clustered", "--mesh", "2"]
+        monkeypatch.setattr(sys, "argv", ["fpm_mine", *args, "--backend",
+                                          "numpy"])
+        rlaunch.main()
+        want = capsys.readouterr().out
+        fpm_mine.main([*args, "--device", "cpu"])
+        got = capsys.readouterr().out
+        line = "mesh: 2 device shards (logical)"
+        assert line in got.splitlines() and line in want.splitlines()
+        assert re.search(r"frequent=\d+ .*d2d=0B migrations=0 dev_occ=",
+                         got)
+    elif "hosts" in kwargs:
+        for mine in (tfpm.mine, rfpm.mine):
+            with pytest.raises(ValueError, match="mutually exclusive"):
+                mine(bm, 1, **kwargs,
+                     **({"device": "cpu"} if mine is tfpm.mine else {}))
     else:
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            tfpm.mine(bm, 1, device="cpu", **kwargs)
+        got, met = tfpm.mine(bm, 20, device="cpu", n_workers=3, max_k=4,
+                             **kwargs)
+        want, wmet = rfpm.mine(bm, 20, n_workers=3, max_k=4,
+                               backend="numpy", **kwargs)
+        assert got == want == rfpm.mine_serial(bm, 20, max_k=4)
+        assert met.n_devices == wmet.n_devices == 2
+        assert len(met.per_device) == 2
 
 
 @pytest.mark.parametrize("granularity", ["bucket", "depth-first"])
@@ -344,7 +411,8 @@ def test_port_imports_neither_jax_nor_reference():
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "_index_cases.py",
               *sorted((ROOT / "tools").glob("*.py"))]
     assert len(files) > 10
-    assert ROOT / "src" / "repro_torch" / "core" / "cluster.py" in files
+    for name in ("cluster.py", "distributed_fpm.py"):
+        assert ROOT / "src" / "repro_torch" / "core" / name in files
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"

@@ -445,7 +445,7 @@ def test_torch_backend_launches_once_per_segment_and_representation(
                                      "gather_intersect_many_rows"] * 3
     for g in range(3):
         (_, dense), (_, sparse) = calls[2 * g], calls[2 * g + 1]
-        mirror = port.device_rows(g)
+        mirror = port.device_rows(segment=g)
         assert dense[0].data_ptr() == mirror.data_ptr()
         assert dense[0].shape[1] == port.seg_mirror_words(g)
         assert dense[4] == sparse[4] == port.seg_words(g)

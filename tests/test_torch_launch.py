@@ -1,8 +1,8 @@
 """The port's launcher against the reference's: the same dataset and
 policies give the same frequent-itemset counts (also with ``--hosts 2``,
-two rank processes over a TCPStore), ``--trace`` writes a loadable
-Chrome trace, the flag of a later slice raises, and without a card the
-launcher refuses to start unless ``--device cpu`` is given."""
+two rank processes over a TCPStore, and ``--mesh 2``, two logical
+shards), ``--trace`` writes a loadable Chrome trace, and without a card
+the launcher refuses to start unless ``--device cpu`` is given."""
 import json
 import os
 import re
@@ -61,14 +61,48 @@ def test_launcher_trace_writes_chrome_json(tmp_path, capsys):
     assert f"trace: wrote {path}" in out and "worker-0" in out
 
 
+def _mesh_lines(out):
+    """The ``mesh:`` line and each policy line's d2d and migration
+    columns (occupancy per shard depends on thread timing)."""
+    return (re.findall(r"^mesh: .*$", out, re.M),
+            re.findall(r"^(\w+)\s+wall=.* (d2d=\d+B migrations=\d+) "
+                       r"dev_occ=", out, re.M))
+
+
 @pytest.mark.parametrize("flag", ["--mesh", "--hosts", "--stream",
                                   "--serve"])
-def test_later_slice_flags_raise_not_implemented(flag):
-    """--mesh waits for a later slice; --hosts (since the cluster slice,
-    see below), --stream and --serve run, but not over a mesh."""
-    extra = ["--mesh", "2"] if flag != "--mesh" else []
-    with pytest.raises(NotImplementedError, match="slice"):
-        tlaunch.main([*SMALL, "--device", "cpu", flag, "2", *extra])
+def test_later_slice_flags_raise_not_implemented(flag, monkeypatch, capsys):
+    """--mesh, which raised before the multi-device slice, runs on the
+    CPU: alone and with --stream (and --serve), its ``mesh:`` line, d2d
+    and migration columns, stream rounds and served counts are the
+    reference launcher's; --hosts with --mesh raises the reference's
+    ValueError."""
+    if flag == "--hosts":
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            tlaunch.main([*SMALL, "--device", "cpu", "--hosts", "2",
+                          "--mesh", "2"])
+        return
+    extra = {"--mesh": [], "--stream": ["--stream", "2"],
+             "--serve": ["--stream", "2", "--serve", "4"]}[flag]
+    args = [*SMALL, "--policies", "clustered", "--mesh", "2", *extra]
+    monkeypatch.setattr(sys, "argv", ["fpm_mine", *args, "--backend",
+                                      "numpy"])
+    rlaunch.main()
+    want = capsys.readouterr().out
+    tlaunch.main([*args, "--device", "cpu"])
+    got = capsys.readouterr().out
+    assert _mesh_lines(got)[0] == _mesh_lines(want)[0] == [
+        "mesh: 2 device shards (logical)"]
+    if flag == "--mesh":
+        assert _mesh_lines(got)[1] == _mesh_lines(want)[1] == [
+            ("clustered", "d2d=0B migrations=0")]
+        assert _serial_count(got) == _serial_count(want) > 0
+    else:
+        assert "stream final == serial" in got
+        gens, first, serve = _stream_lines(got)
+        assert (gens, first, serve) == _stream_lines(want)
+        assert sorted(gens) == [2, 3] and first > 0
+        assert (serve is None) == (flag == "--stream")
 
 
 def _hosts_line(out):
@@ -112,7 +146,8 @@ STREAM_KEYS = ("reused", "delta", "full", "born", "died")
 
 def _stream_lines(out):
     """{generation: {key: value}} of the stream rounds, the first
-    generation's frequent count, and the serve stats line."""
+    generation's frequent count, and the serve stats line (None without
+    --serve)."""
     gens = {}
     for m in re.finditer(r"^stream gen(\d+): \+\d+tx .*$", out, re.M):
         gens[int(m.group(1))] = {
@@ -120,8 +155,8 @@ def _stream_lines(out):
             for k in STREAM_KEYS}
     first = int(re.search(r"^stream gen1: .*frequent=(\d+)", out,
                           re.M).group(1))
-    serve = re.search(r"^serve stats: (.*)$", out, re.M).group(1)
-    return gens, first, serve
+    serve = re.search(r"^serve stats: (.*)$", out, re.M)
+    return gens, first, serve and serve.group(1)
 
 
 @pytest.mark.parametrize("backend", ["numpy", "torch"])

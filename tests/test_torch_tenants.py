@@ -169,7 +169,10 @@ def test_two_tenants_refresh_concurrently_from_two_threads():
                 errors.append(e)
 
         def ask():
-            while not done.is_set():
+            # a burst per millisecond: a bare spin over answers that are
+            # dict hits after the first holds the interpreter lock and
+            # starves the refreshing threads for minutes
+            while not done.wait(0.001):
                 for tid, t in ts.items():
                     with h._state:
                         n = t.snapshot.n_transactions
