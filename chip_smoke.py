@@ -95,14 +95,13 @@ kernels line counts their launches:
               itself.
 Four more phases follow, also before the profile, on the phase-3 data
 (clustered, 8 workers per host):
- 15. cluster  ``repro_torch.mine(hosts=2)`` at bucket grain and max_k=4
-              (cut from 8 for the time limit; supports equal
-              ``mine_serial``, one reduction per flush, ``net_bytes`` >
-              0, ``bitmap_join_many`` launched on both hosts' mirrors by
-              their own flushes and by peer evaluations with tuple
-              prefixes), then three hosts, depth-first grain, and
-              every bucket on host 0 (a cross-host steal must happen);
-              prints wall, flushes,
+ 15. cluster  ``repro_torch.mine(hosts=2)`` at bucket grain and max_k=8
+              (supports equal ``mine_serial``, one reduction per flush,
+              ``net_bytes`` > 0, ``bitmap_join_many`` launched on both
+              hosts' mirrors by their own flushes and by peer
+              evaluations with tuple prefixes), then at max_k=4 three
+              hosts, depth-first grain, and every bucket on host 0 (a
+              cross-host steal must happen); prints wall, flushes,
               occupancy, ``net_bytes`` and each host's ``eval_s`` and
               ``eval_bytes`` beside phase 4;
  16. cluster-stream  ``StreamingMiner(hosts=2)`` on phase 13's stream at
@@ -1191,19 +1190,18 @@ def spied(run):
 def phase_cluster(dev, bitmaps, counts, min_support, serial, bitmap_met):
     """Phase 15: the multi-host mine on the card, four runs, each with
     the launch counts set to 0 just before it and read just after it:
-    ``repro_torch.mine(hosts=2)`` at bucket grain (supports equal
-    ``mine_serial``, one reduction per flush, bytes on the interconnect,
-    ``bitmap_join_many`` launched on both hosts' mirrors by their own
-    flushes and by peer evaluations with tuple prefixes), then three
-    hosts, depth-first grain and a forced cross-host steal (of up to
-    three attempts, only the one kept is counted), all at max_k=4.
-    Returns the launches of each run, by column."""
+    ``repro_torch.mine(hosts=2)`` at bucket grain and max_k=8 (supports
+    equal ``mine_serial``, one reduction per flush, bytes on the
+    interconnect, ``bitmap_join_many`` launched on both hosts' mirrors
+    by their own flushes and by peer evaluations with tuple prefixes),
+    then at max_k=4 three hosts, depth-first grain and a forced
+    cross-host steal (of up to three attempts, only the one kept is
+    counted). Returns the launches of each run, by column."""
     import repro_torch
     from repro_torch.core import cluster
     want4 = {c: v for c, v in serial.items() if len(c) <= BITMAP_MAX_K}
     runs = [
-        # max_k=4, not 8: the smoke's time limit (PERF.md section 4)
-        ("cluster", "hosts=2, bucket", BITMAP_MAX_K, dict(hosts=2)),
+        ("cluster", "hosts=2, bucket", MAIN_MAX_K, dict(hosts=2)),
         ("cluster-3", "hosts=3, bucket", BITMAP_MAX_K, dict(hosts=3)),
         ("cluster-depth-first", "hosts=2, depth-first", BITMAP_MAX_K,
          dict(hosts=2, granularity="depth-first")),
@@ -1743,7 +1741,6 @@ def phase_mesh(dev, bitmaps, counts, min_support, serial, main_met,
         spy.hold(f"mesh[{label}]")
         shards.hold(f"mesh[{label}]")
         columns[column] = launches
-    total = {"bitmap_join_many": 0, "gather_intersect_many": 0}
     for policy in ("clustered", "round_robin"):
         (result, stats), wall, launches, spy, shards = mesh_spied(
             lambda: repro_torch.mine_distributed(
@@ -1765,9 +1762,7 @@ def phase_mesh(dev, bitmaps, counts, min_support, serial, main_met,
             f"mine_serial ok; launches={json.dumps(launches)}, per shard "
             f"mirror {per_shard}")
         spy.hold(f"mesh-distributed[{policy}]")
-        for k in total:
-            total[k] += launches[k]
-    columns["mesh-distributed"] = total
+        columns[f"mesh-distributed-{policy.replace('_', '-')}"] = launches
     return columns
 
 

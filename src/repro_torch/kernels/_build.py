@@ -93,9 +93,10 @@ def library(name: str) -> ctypes.CDLL:
 
 class Kernel:
     """The C entry point ``name`` of ``csrc/<name>.cu``, typed as
-    ``argtypes`` -> int (a CUDA error code). It is built and bound at its
-    first call, and later calls go straight to ``ctypes``; a call raises
-    ``RuntimeError`` when the launch returned an error."""
+    ``argtypes`` -> int (a CUDA error code), its last argument the stream
+    to launch on. It is built and bound at its first call, and later
+    calls go straight to ``ctypes``; a call raises ``RuntimeError`` when
+    the launch returned an error."""
 
     def __init__(self, name: str, argtypes: Sequence):
         self.name = name
@@ -115,9 +116,15 @@ class Kernel:
         self._fn = fn
         return fn
 
-    def __call__(self, *args) -> None:
+    def __call__(self, device: torch.device, *args) -> None:
+        """Launch on ``device``'s current stream with ``args`` (all but the
+        stream). ``device`` is the calling thread's current device for the
+        call: the entry point launches in the current device's context,
+        which a thread that never chose one (a shard's dispatcher) leaves
+        at device 0."""
         fn = self._fn or self._bind()
-        code = fn(*args)
+        with torch.cuda.device(device):
+            code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if code != 0:
             msg = self._err(code).decode()
             raise RuntimeError(f"{self.name} launch failed: CUDA error "

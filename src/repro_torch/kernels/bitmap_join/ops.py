@@ -45,10 +45,9 @@ def _launch_rows(prefix_rows, pidx, ext_rows, eidx, n_words):
     _build.check_grid(b, e, ROWS_PER_BLOCK)
     out = torch.empty((b, e), dtype=torch.int32, device=eidx.device)
     tuple_len = pidx.shape[1] if pidx.dim() == 2 else 1
-    _MANY(prefix_rows.data_ptr(), pidx.data_ptr(), ext_rows.data_ptr(),
-          eidx.data_ptr(), out.data_ptr(), b, e, n_words, tuple_len,
-          prefix_rows.stride(0), ext_rows.stride(0),
-          torch.cuda.current_stream(eidx.device).cuda_stream)
+    _MANY(eidx.device, prefix_rows.data_ptr(), pidx.data_ptr(),
+          ext_rows.data_ptr(), eidx.data_ptr(), out.data_ptr(), b, e,
+          n_words, tuple_len, prefix_rows.stride(0), ext_rows.stride(0))
     launches += 1
     return out
 
@@ -160,7 +159,7 @@ def bitmap_join(prefix: torch.Tensor, exts: torch.Tensor) -> torch.Tensor:
     if not (prefix.is_contiguous() and exts.is_contiguous()):
         raise ValueError("bitmap_join takes contiguous tensors")
     out = torch.empty(e, dtype=torch.int32, device=exts.device)
-    _SINGLE(prefix.data_ptr(), exts.data_ptr(), out.data_ptr(), e, w,
-            torch.cuda.current_stream(exts.device).cuda_stream)
+    _SINGLE(exts.device, prefix.data_ptr(), exts.data_ptr(), out.data_ptr(),
+            e, w)
     single_launches += 1
     return out

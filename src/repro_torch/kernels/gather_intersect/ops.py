@@ -39,10 +39,9 @@ def _launch_rows(tids, lens, ext_rows, eidx, n_words):
                          "index tensors")
     _build.check_grid(b, e, ROWS_PER_BLOCK)
     out = torch.empty((b, e), dtype=torch.int32, device=eidx.device)
-    _KERNEL(tids.data_ptr(), lens.data_ptr(), ext_rows.data_ptr(),
-            eidx.data_ptr(), out.data_ptr(), b, e, tids.shape[1], n_words,
-            ext_rows.stride(0),
-            torch.cuda.current_stream(eidx.device).cuda_stream)
+    _KERNEL(eidx.device, tids.data_ptr(), lens.data_ptr(),
+            ext_rows.data_ptr(), eidx.data_ptr(), out.data_ptr(), b, e,
+            tids.shape[1], n_words, ext_rows.stride(0))
     launches += 1
     return out
 

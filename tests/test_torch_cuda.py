@@ -514,6 +514,8 @@ def _shard_launches(monkeypatch):
                      for m in arena._mirrors[s].values()
                      if m.data_ptr() == args[2].data_ptr()]
             assert len(owner) == 1
+            if arena.devices is not None:
+                assert args[2].device == arena.shard_device(owner[0])
             seen[(name, owner[0])] += 1
             return fn(*args)
         return call
@@ -575,3 +577,66 @@ def test_shard_dispatchers_stage_in_distinct_pinned_buffers(cuda):
     bufs = [b._stage for b in backends] + [b._counts for b in backends]
     assert all(buf.is_pinned() for buf in bufs)
     assert len({buf.data_ptr() for buf in bufs}) == 4
+
+
+@pytest.fixture
+def two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return [torch.device("cuda:0"), torch.device("cuda:1")]
+
+
+@pytest.mark.parametrize("granularity", ["bucket", "candidate",
+                                         "depth-first"])
+def test_device_list_mesh_on_two_cards_matches_serial(
+        two_cards, monkeypatch, granularity):
+    """One shard per card: each shard's dispatcher thread launches on its
+    own card's mirrors (the spy checks the mirror's device)."""
+    bm, counts = _small_db()
+    seen = _shard_launches(monkeypatch)
+    got, met = repro_torch.mine(bm, 40, max_k=4, item_counts=counts,
+                                granularity=granularity, mesh=two_cards)
+    assert got == repro_torch.mine_serial(bm, 40, max_k=4)
+    assert met.n_devices == 2 and all(d["flushes"] > 0
+                                      for d in met.per_device)
+    for shard in (0, 1):
+        assert seen[("bitmap_join_many_rows", shard)] > 0
+
+
+def test_device_list_arena_on_two_cards_equals_cpu_arena(two_cards):
+    rows = RNG.integers(0, 2 ** 32, size=(6, 37), dtype=np.uint32)
+    arenas = [BitmapArena.from_bitmaps(rows, device=d, n_shards=2,
+                                       devices=ds)
+              for d, ds in ((two_cards[0], two_cards), ("cpu", None))]
+    for a in arenas:
+        h = a.materialize(0, 1, shard=0)
+        a.device_rows(1, needed=[0, 2])
+        a.migrate([a.materialize(2, 3, shard=0)], dst=1)
+    got, want = (a.device_rows(1, needed=[h, 2]) for a in arenas)
+    assert got.device == two_cards[1]
+    assert torch.equal(got.cpu(), want)
+    got, want = (a.device_rows(0, needed=[h, 2]) for a in arenas)
+    assert got.device == two_cards[0]
+    assert torch.equal(got.cpu(), want)
+    assert len({(a.d2d_bytes, a.h2d_bytes, a.migrations)
+                for a in arenas}) == 1
+
+
+def test_device_list_streaming_mesh_on_two_cards(two_cards):
+    from repro_torch.core import streaming as ts
+    rng = np.random.default_rng(4)
+    txs = [sorted(rng.choice(40, size=rng.integers(2, 8),
+                             replace=False).tolist()) for _ in range(1200)]
+    sm = ts.StreamingMiner(40, 30, initial_db=txs[:1000], max_k=4,
+                           arena="jax", mesh=two_cards)
+    try:
+        sm.refresh()
+        sm.ingest(txs[1000:])
+        sm.refresh()
+        assert dict(sm.snapshot.supports) == repro_torch.mine_serial(
+            pack_database(txs, 40), 30, max_k=4)
+        probes = [(0, 1, 2, 3, 4, 5), (7, 9, 11)]
+        assert sm.support_many(probes) == [
+            sum(1 for t in txs if set(x) <= set(t)) for x in probes]
+    finally:
+        sm.close()

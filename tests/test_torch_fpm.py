@@ -280,7 +280,7 @@ def _mesh_hub(mod, db):
 @pytest.mark.parametrize("kwargs", [
     {"mesh": 2}, {"hosts": 2, "mesh": 2}, {"stream_mesh": 2},
     {"hub_mesh": 2}, {"launcher_mesh": 2}])
-def test_later_slices_raise_not_implemented(kwargs, capsys, monkeypatch):
+def test_mesh_entry_points_match_reference(kwargs, capsys, monkeypatch):
     """The mesh entry points, which raised before the multi-device slice,
     run on the CPU and give the reference's results: a batch mine, a
     streaming miner, a tenant hub and the launcher's --mesh; hosts with

@@ -71,7 +71,7 @@ def _mesh_lines(out):
 
 @pytest.mark.parametrize("flag", ["--mesh", "--hosts", "--stream",
                                   "--serve"])
-def test_later_slice_flags_raise_not_implemented(flag, monkeypatch, capsys):
+def test_mesh_flags_match_reference_launcher(flag, monkeypatch, capsys):
     """--mesh, which raised before the multi-device slice, runs on the
     CPU: alone and with --stream (and --serve), its ``mesh:`` line, d2d
     and migration columns, stream rounds and served counts are the
