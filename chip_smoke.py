@@ -134,8 +134,8 @@ shards of the one card (two mirrors, two dispatchers, two backends):
               ``steal_migrations`` > 0; of up to three attempts only the
               kept one is counted), a one-device mesh ``[cuda:0]`` at
               phase 4's settings (no d2d) and
-              ``repro_torch.mine_distributed(mesh=2)`` under both
-              policies; each run's wall beside phase 3's (or phase
+              ``repro_torch.mine_distributed(mesh=2)`` under the
+              clustered policy; each run's wall beside phase 3's (or phase
               4's at max_k=4), with per-shard flushes, occupancy,
               ``sweep_s``, ``d2d_bytes`` and ``migrations``;
  20. mesh-stream  ``StreamingMiner(mesh=2)`` on phase 13's stream at
@@ -148,16 +148,52 @@ shards of the one card (two mirrors, two dispatchers, two backends):
               two tenants, each final snapshot equal to ``mine_serial``
               of its own data;
  21. launcher-mesh  the launcher's ``main`` with ``--dataset t10i4 --mesh
-              2 --policies clustered --max-k 8`` in this process; it
+              2 --policies clustered --max-k 4`` in this process; it
               checks ``mine_serial`` itself and prints ``d2d=``,
               ``migrations=`` and ``dev_occ=``.
-Each run of phases 11-21 wraps the backend's four kernel entries
+Three more phases follow, also before the profile: the ``run`` function
+of each example script (``examples/torch_*.py``), called in this
+process, each mine or refresh in it timed and counted alone
+(``CallSpy``):
+ 22. quickstart  ``torch_quickstart.run`` on the chess profile (3,196
+              transactions x 75 items, W=100, support 60%) at max_k=3:
+              Cilk and clustered at candidate grain (host joins: no
+              launch), then candidate, bucket and depth-first grain,
+              each equal to ``mine_serial``; prints each run's cache hit
+              rate and tasks per steal; the bucket mine's launches are
+              recorded for a phase-9 row at the chess shape;
+ 23. distributed  ``torch_distributed_mining.run``: mushroom cut to
+              2,500 transactions over eight logical shards of the one
+              card, ``mine(mesh=)`` at bucket and depth-first grain and
+              ``mine_distributed`` under round_robin and clustered (max_k
+              =4), each equal to ``mine_serial``; ``bitmap_join_many``
+              must launch on all eight shards' mirrors;
+ 24. streaming-patterns  ``torch_streaming_patterns.run``: retail (1,200
+              items, Zipf 1.05), the first 10,000 transactions mined,
+              then four ingests of 500, each followed by a top-3 query
+              and a refresh (max_k=5, 4 workers) under the fraction
+              threshold 1.2%, which rises with the data, so itemsets die
+              and return: every generation equal to ``mine_serial`` at
+              its own threshold, some generation with deaths, tuple-
+              prefix launches from the delta refreshes, ``support()`` of
+              the top itemset equal to a host count; the initial
+              refresh's launches are recorded for a phase-9
+              ``gather_intersect_many`` row at the retail shape.
+Each run of phases 11-24 wraps the backend's four kernel entries
 (``EntrySpy``): calls must equal the counted launches, and each entry's
 first call (and the dense entry's first tuple-prefix call) is held
 against its plain version; in phases 15-16 also the first tuple-prefix
-call of a peer evaluation (``HostSpy``), and in phases 19-21 the first
-call on each shard's mirror (``ShardSpy``, which attributes every launch
-to the shard whose mirror it was handed).
+call of a peer evaluation (``HostSpy``), and in phases 19-21 and 23 the
+first call on each shard's mirror (``ShardSpy``, which attributes every
+launch to the shard whose mirror it was handed).
+
+Cut to fit the time limit: the smoke took 1,039 s of its 1,200 s
+before phases 22-24 (about 35 s on an H100), and its host-bound phases
+vary 5-18% from run to run. Phase 19 runs ``mine_distributed`` under the
+clustered policy only (round_robin took 46.5 s on two shards; phase 23
+runs it over eight), and phase 21 runs the launcher at max_k=4 instead
+of 8 (it took 47 s). No path stops being driven and no kernel loses a
+parity check.
 
 The script imports nothing of JAX or of the reference package ``repro``.
 It exits non-zero without a result when no CUDA device is present.
@@ -165,6 +201,7 @@ It exits non-zero without a result when no CUDA device is present.
 from __future__ import annotations
 
 import collections
+import itertools
 import json
 import subprocess
 import sys
@@ -172,7 +209,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
+sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests"), str(ROOT / "examples")]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the 32-bit
 # integer rate of the CUDA cores (half the 67 TFLOP/s fp32 rate).
@@ -1662,8 +1699,8 @@ def phase_mesh(dev, bitmaps, counts, min_support, serial, main_met,
     0's workers (cross-shard steals must migrate handoff rows; of up to
     three attempts only the kept one is counted), a one-device mesh
     (``[cuda:0]`` at phase 4's settings: no d2d) and
-    ``mine_distributed`` under both policies. Returns the launches of
-    each run, by column."""
+    ``mine_distributed`` under the clustered policy (round_robin runs in
+    phase 23). Returns the launches of each run, by column."""
     import torch
     import repro_torch
     from repro_torch.core import scheduler
@@ -1741,28 +1778,28 @@ def phase_mesh(dev, bitmaps, counts, min_support, serial, main_met,
         spy.hold(f"mesh[{label}]")
         shards.hold(f"mesh[{label}]")
         columns[column] = launches
-    for policy in ("clustered", "round_robin"):
-        (result, stats), wall, launches, spy, shards = mesh_spied(
-            lambda: repro_torch.mine_distributed(
-                bitmaps, min_support, 2, policy=policy,
-                max_k=BITMAP_MAX_K, device=dev))
-        if result != want4 or stats["n_devices"] != 2:
-            raise SystemExit(f"mesh-distributed[{policy}]: supports differ "
-                             f"from mine_serial, or {stats['n_devices']} "
-                             f"devices")
-        per_shard = shards.check(f"mesh-distributed[{policy}]", 2)
-        spy.check_route(f"mesh-distributed[{policy}]", launches, 0,
-                        indexed=True)
-        occ = "/".join(f"{d['batch_occupancy']:.2f}"
-                       for d in stats["per_device"])
-        log(f"mesh-distributed[{policy}, max_k={BITMAP_MAX_K}]: wall_s="
-            f"{wall:.3f} (phase 4: {bitmap_met.wall_s:.3f}) rows_touched="
-            f"{stats['rows_touched']} d2d_bytes={stats['d2d_bytes']} "
-            f"migrations={stats['migrations']} dev_occ={occ}; supports=="
-            f"mine_serial ok; launches={json.dumps(launches)}, per shard "
-            f"mirror {per_shard}")
-        spy.hold(f"mesh-distributed[{policy}]")
-        columns[f"mesh-distributed-{policy.replace('_', '-')}"] = launches
+    # clustered only: phase 23 runs both policies over eight shards
+    (result, stats), wall, launches, spy, shards = mesh_spied(
+        lambda: repro_torch.mine_distributed(
+            bitmaps, min_support, 2, policy="clustered",
+            max_k=BITMAP_MAX_K, device=dev))
+    if result != want4 or stats["n_devices"] != 2:
+        raise SystemExit(f"mesh-distributed[clustered]: supports differ "
+                         f"from mine_serial, or {stats['n_devices']} "
+                         f"devices")
+    per_shard = shards.check("mesh-distributed[clustered]", 2)
+    spy.check_route("mesh-distributed[clustered]", launches, 0,
+                    indexed=True)
+    occ = "/".join(f"{d['batch_occupancy']:.2f}"
+                   for d in stats["per_device"])
+    log(f"mesh-distributed[clustered, max_k={BITMAP_MAX_K}]: wall_s="
+        f"{wall:.3f} (phase 4: {bitmap_met.wall_s:.3f}) rows_touched="
+        f"{stats['rows_touched']} d2d_bytes={stats['d2d_bytes']} "
+        f"migrations={stats['migrations']} dev_occ={occ}; supports=="
+        f"mine_serial ok; launches={json.dumps(launches)}, per shard "
+        f"mirror {per_shard}")
+    spy.hold("mesh-distributed[clustered]")
+    columns["mesh-distributed-clustered"] = launches
     return columns
 
 
@@ -1904,7 +1941,7 @@ def phase_mesh_stream(dev, db, n_items, min_support, serial):
 
 def phase_launcher_mesh():
     """Phase 21: the launcher's ``main`` with ``--dataset t10i4 --mesh 2
-    --policies clustered --max-k 8`` in this process, the launch counts
+    --policies clustered --max-k 4`` in this process, the launch counts
     set to 0 just before and read just after; it checks ``mine_serial``
     itself. Its ``mesh:`` line and ``d2d=``, ``migrations=`` and
     ``dev_occ=`` columns must be printed. Returns the launches."""
@@ -1913,7 +1950,7 @@ def phase_launcher_mesh():
     import re
     from repro_torch.launch import fpm_mine
     argv = ["--dataset", "t10i4", "--mesh", "2", "--policies", "clustered",
-            "--max-k", str(MAIN_MAX_K)]
+            "--max-k", str(BITMAP_MAX_K)]
     log(f"launcher-mesh: python -m repro_torch.launch.fpm_mine "
         f"{' '.join(argv)}")
     out = io.StringIO()
@@ -1937,6 +1974,253 @@ def phase_launcher_mesh():
         f"{json.dumps(launches)}, per shard mirror {per_shard}")
     spy.hold("launcher-mesh")
     return launches
+
+
+QUICK_MAX_K = 3                # phase 22 (the script's own: 4)
+
+
+class CallSpy:
+    """Wraps a script's mine entry points for one phase, so that each
+    call is timed and counted apart: for each call, in order, its label
+    (``label(name, args, kwargs)``), wall, the launches made during it
+    (the counters read just before and just after; the calls do not
+    overlap) and its result. The call whose label is ``record`` runs
+    with a ``Recorder`` on each indexed entry, for phase 9's timing at
+    the script's shapes (``recorders``)."""
+
+    def __init__(self, targets, label, record=None):
+        self.targets = targets
+        self.label = label
+        self.record = record
+        self.calls = []
+        self.recorders = {}
+
+    def __enter__(self):
+        self.originals = [getattr(o, n) for o, n in self.targets]
+        for (owner, name), fn in zip(self.targets, self.originals):
+            setattr(owner, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (owner, name), fn in zip(self.targets, self.originals):
+            setattr(owner, name, fn)
+
+    def _wrap(self, name, fn):
+        from repro_torch.core import join_backend
+
+        def call(*args, **kw):
+            label = self.label(name, args, kw)
+            recs = {}
+            if label == self.record:
+                recs = {"bitmap_join_many": Recorder(
+                            join_backend.bitmap_join_many_rows, False),
+                        "gather_intersect_many": Recorder(
+                            join_backend.gather_intersect_many_rows, True)}
+                for kernel, rec in recs.items():
+                    setattr(join_backend, f"{kernel}_rows", rec)
+            before = counted_launches()
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kw)
+            finally:
+                for kernel, rec in recs.items():
+                    setattr(join_backend, f"{kernel}_rows", rec.fn)
+                    rec.freeze()
+            wall = time.perf_counter() - t0
+            after = counted_launches()
+            self.recorders.update(recs)
+            self.calls.append((label, wall, {k: after[k] - before[k]
+                                             for k in after}, out))
+            return out
+        return call
+
+
+def phase_quickstart(dev):
+    """Phase 22: ``examples/torch_quickstart.py``'s ``run`` on the card
+    at chess's full size and max_k=3: the serial reference, Cilk and
+    clustered at candidate grain (host joins, as on one device the
+    reference's are), then candidate, bucket and depth-first grain under
+    the clustered policy, each checked equal to ``mine_serial`` by the
+    script and again here. Each mine is timed and counted alone
+    (``CallSpy``); the bucket mine's launches are recorded for phase 9's
+    row at the chess shape. Returns (launches, recorders)."""
+    import torch_quickstart as tq
+    log(f"quickstart: examples/torch_quickstart.py run(max_k="
+        f"{QUICK_MAX_K}) (the script's own max_k is 4)")
+    calls = CallSpy([(tq, "mine")],
+                    lambda _, a, kw: f"{kw['granularity']}/{kw['policy']}",
+                    record="bucket/clustered")
+    with EntrySpy() as spy, calls:
+        reset_launches()
+        t0 = time.perf_counter()
+        done = tq.run(dev, max_k=QUICK_MAX_K, out=log)
+        wall = time.perf_counter() - t0
+        launches = counted_launches()
+    sparse = 0
+    for label, run_wall, got, (res, met) in calls.calls:
+        if res != done["serial"]:
+            raise SystemExit(f"quickstart[{label}]: supports differ from "
+                             f"mine_serial")
+        if label.startswith("candidate") and any(got.values()):
+            raise SystemExit(f"quickstart[{label}]: a one-device candidate "
+                             f"mine launched {got}; its joins are host "
+                             f"joins")
+        sparse += met.sparse_sweeps
+        s = met.scheduler
+        log(f"quickstart mine[{label}, max_k={QUICK_MAX_K}]: wall_s="
+            f"{run_wall:.3f} cache_hit_rate={met.cache_hit_rate:.4f} "
+            f"cache_hits={met.cache_hits} cache_misses={met.cache_misses} "
+            f"steals={int(s['steals'])} tasks/steal="
+            f"{s['tasks_per_steal']:.2f} tasks={int(s['tasks_run'])} "
+            f"rows_touched={met.rows_touched} flushes={met.flushes} "
+            f"occupancy={met.batch_occupancy:.2f} h2d_bytes={met.h2d_bytes} "
+            f"peak_retained_bitmaps={met.peak_retained_bitmaps} "
+            f"launches={json.dumps(got)} supports==mine_serial ok")
+    spy.check_route("quickstart", launches, sparse, indexed=True)
+    for label in ("bucket/clustered", "depth-first/clustered"):
+        if not next(g for lab, _, g, _ in calls.calls
+                    if lab == label)["bitmap_join_many"]:
+            raise SystemExit(f"quickstart[{label}]: bitmap_join_many never "
+                             f"launched")
+    log(f"quickstart: {len(done['serial'])} itemsets, every run == "
+        f"mine_serial in {wall:.1f} s; launches={json.dumps(launches)}, "
+        f"all through the indexed entries")
+    spy.hold("quickstart")
+    return launches, {"bitmap_join_many":
+                      calls.recorders["bitmap_join_many"]}
+
+
+def phase_distributed(dev):
+    """Phase 23: ``examples/torch_distributed_mining.py``'s ``run`` on the
+    card at the script's settings (mushroom, 2,500 transactions, eight
+    shards: logical shards on a host with fewer cards): ``mine(mesh=)``
+    at bucket and depth-first grain, then ``mine_distributed`` under
+    round_robin and clustered, each equal to ``mine_serial``, each timed
+    and counted alone; ``ShardSpy`` attributes every launch to a shard
+    (every shard must launch the dense kernel), and each (kernel,
+    shard)'s first call is held against its plain version. Returns the
+    launches."""
+    import torch_distributed_mining as tdm
+
+    def label(name, args, kw):
+        return (f"mine_distributed/{kw['policy']}"
+                if name == "mine_distributed"
+                else f"mesh/{kw['granularity']}")
+
+    log("distributed: examples/torch_distributed_mining.py run()")
+    calls = CallSpy([(tdm, "mine"), (tdm, "mine_distributed")], label)
+    with calls:
+        done, wall, launches, spy, shards = mesh_spied(
+            lambda: tdm.run(dev, out=log))
+    n = len(done["granularities"]["bucket"][1].per_device)
+    for label, run_wall, got, (res, met) in calls.calls:
+        if res != done["serial"]:
+            raise SystemExit(f"distributed[{label}]: supports differ from "
+                             f"mine_serial")
+        if isinstance(met, dict):
+            line = (f"rows_touched={met['rows_touched']} "
+                    f"candidates={met['candidates']} d2d_bytes="
+                    f"{met['d2d_bytes']} migrations={met['migrations']} "
+                    f"n_devices={met['n_devices']}")
+            per = met["per_device"]
+        else:
+            line = (f"rows_touched={met.rows_touched} d2d_bytes="
+                    f"{met.d2d_bytes} migrations={met.migrations} "
+                    f"cache_misses={met.cache_misses} "
+                    f"candidates={met.candidates} n_devices={met.n_devices}")
+            per = met.per_device
+        if len(per) != n or n != 8:
+            raise SystemExit(f"distributed[{label}]: {len(per)} shards")
+        occ = "/".join(f"{d['batch_occupancy']:.2f}" for d in per)
+        flushes = "/".join(str(d["flushes"]) for d in per)
+        log(f"distributed mine[{label}, max_k=4]: wall_s={run_wall:.3f} "
+            f"{line} dev_occupancy={occ} flushes={flushes} "
+            f"launches={json.dumps(got)} supports==mine_serial ok")
+    per_shard = shards.check("distributed", n)
+    spy.check_route("distributed", launches, 0, indexed=True)
+    log(f"distributed: {len(done['serial'])} itemsets over {n} shards, "
+        f"every run == mine_serial in {wall:.1f} s; launches="
+        f"{json.dumps(launches)}, per shard mirror {per_shard}")
+    spy.hold("distributed")
+    shards.hold("distributed")
+    return launches
+
+
+def phase_streaming_patterns(dev):
+    """Phase 24: ``examples/torch_streaming_patterns.py``'s ``run`` on
+    the card at the script's settings (retail: 10,000 transactions
+    mined, then four ingests of 500, each with a top-3 query and a
+    refresh, max_k=5, under the fraction threshold 1.2%, so the border
+    moves both ways): every generation equal to ``mine_serial`` at its
+    own threshold, the dense kernel launched with tuple prefixes (the
+    delta refreshes), the first call of each entry and the first
+    tuple-prefix call held against their plain versions; the initial
+    refresh's launches are recorded for phase 9's row at the retail
+    shape. Returns (launches, recorders)."""
+    import torch_streaming_patterns as tsp
+    from repro_torch.core import streaming as ts
+    from repro_torch.core.fpm import mine_serial
+    from repro_torch.core.tidlist import pack_database
+    from repro_torch.data.transactions import load
+    order = itertools.count(1)
+    log("streaming-patterns: examples/torch_streaming_patterns.py run()")
+    calls = CallSpy([(ts.StreamingMiner, "refresh")],
+                    lambda *_: f"refresh {next(order)}", record="refresh 1")
+    with EntrySpy() as spy, calls:
+        reset_launches()
+        t0 = time.perf_counter()
+        done = tsp.run(dev, out=log)
+        wall = time.perf_counter() - t0
+        launches = counted_launches()
+    db, prof = load("retail", seed=0)
+    sparse = 0
+    for (rep, supports), (label, run_wall, got, _) in zip(
+            done["generations"], calls.calls):
+        want = mine_serial(pack_database(db[:rep.n_transactions],
+                                         prof.n_items),
+                           rep.min_support, max_k=5)
+        if supports != want:
+            missing = len(want.keys() - supports.keys())
+            raise SystemExit(f"streaming-patterns: generation "
+                             f"{rep.generation} differs from mine_serial "
+                             f"at min_support {rep.min_support} ({missing} "
+                             f"itemsets missing)")
+        met = rep.metrics
+        sparse += met.sparse_sweeps
+        log(f"streaming-patterns gen {rep.generation}: wall_s={run_wall:.3f}"
+            f" |D|={rep.n_transactions} min_support={rep.min_support} "
+            f"frequent={rep.frequent} born={rep.born} died={rep.died} "
+            f"reused={rep.reused} delta={rep.swept_delta} "
+            f"full={rep.swept_full} rows={rep.rows_touched} "
+            f"flushes={met.flushes} occupancy={met.batch_occupancy:.2f} "
+            f"sparse_sweeps={met.sparse_sweeps} dense_sweeps="
+            f"{met.dense_sweeps} launches={json.dumps(got)} "
+            f"== mine_serial ok")
+    if not any(rep.died for rep, _ in done["generations"]):
+        raise SystemExit("streaming-patterns: no generation lost an "
+                         "itemset; the border did not move both ways")
+    spy.check_route("streaming-patterns", launches, sparse, indexed=True)
+    tuples = sum(spy.tuple_shapes.values())
+    if not tuples:
+        raise SystemExit("streaming-patterns: no tuple-prefix launch")
+    payload = [ing.payload_bytes for ing in done["ingests"]]
+    log(f"streaming-patterns: {len(done['generations'])} generations == "
+        f"mine_serial in {wall:.1f} s; ingests {payload} B; top-3 "
+        f"{done['top3'][-1]}; support{done['itemset']} = {done['support']}"
+        f"; launches={json.dumps(launches)} (sparse_sweeps={sparse}), "
+        f"{tuples} with tuple prefixes; tuple shapes (B', L, E', W_seg): "
+        f"{dict(spy.tuple_shapes.most_common(4))}")
+    spy.hold("streaming-patterns")
+    rec = calls.recorders["gather_intersect_many"]
+    if not rec.shapes:
+        log("streaming-patterns: the initial refresh made no sparse sweep; "
+            "phase 9 has no gather_intersect_many row at the retail shape")
+    x = set(done["itemset"])
+    if done["support"] != sum(1 for t in db[:rep.n_transactions]
+                              if x <= set(t)):
+        raise SystemExit("streaming-patterns: support() of the top itemset "
+                         "differs from a host count")
+    return launches, {"gather_intersect_many": rec}
 
 
 def phase_profile(dev, bitmaps, counts, min_support, granularity,
@@ -2146,14 +2430,16 @@ def log_time(name, where, shape, m):
             f"{m['launch_floor_ms']:.4f} ms")
 
 
-def report(recorders, df_recorders, entry_inputs, launches, worst,
-           stream_spy):
+def report(recorder_sets, entry_inputs, launches, worst, stream_spy):
     """The kernels line: each batched kernel timed through its indexed
-    entry at its most frequent phase-3 batch shape (and at its most
-    frequent depth-first one; ``bitmap_join_many`` also at phase 13's
-    most frequent tuple-prefix shape), the single-prefix kernel at the
-    entry point's shapes, all on inputs captured from those runs.
-    ``launches`` maps each kernel to its launches per phase."""
+    entry at its most frequent batch shape in each recorded run of
+    ``recorder_sets`` ((phase, {kernel: Recorder}); phase 3's first, then
+    phase 5's, phase 22's chess bucket mine for ``bitmap_join_many`` and
+    phase 24's retail initial refresh for ``gather_intersect_many``;
+    ``bitmap_join_many`` also at phase 13's most frequent tuple-prefix
+    shape), the single-prefix kernel at the entry point's shapes, all on
+    inputs captured from those runs. ``launches`` maps each kernel to
+    its launches per phase."""
     import torch
     from repro_torch.kernels.bitmap_join import ops as bj
     from repro_torch.kernels.bitmap_join.ref import (
@@ -2188,10 +2474,9 @@ def report(recorders, df_recorders, entry_inputs, launches, worst,
                      for k, args in entry_inputs.items()]
         else:
             cases = []
-            for phase, recs in (("bucket", recorders),
-                                ("depth-first", df_recorders)):
-                rec = recs[name]
-                if not rec.shapes:
+            for phase, recs in recorder_sets:
+                rec = recs.get(name)
+                if rec is None or not rec.shapes:
                     continue
                 axes = "B', S', E'" if rec.sparse else "B', E'"
                 log(f"  {name} {phase} batch shapes (padded {axes}): "
@@ -2329,6 +2614,11 @@ def main() -> int:
                                          min_support, serial).items():
         note(column, got)
     note("launcher-mesh", phase_launcher_mesh())
+    got, quick_recs = phase_quickstart(dev)
+    note("quickstart", got)
+    note("distributed", phase_distributed(dev))
+    got, stream_recs = phase_streaming_patterns(dev)
+    note("streaming-patterns", got)
 
     for granularity, representation, max_k in (
             ("bucket", "auto", MAIN_MAX_K),
@@ -2338,8 +2628,11 @@ def main() -> int:
         phase_profile(dev, bitmaps, counts, min_support, granularity,
                       representation, max_k)
     phase_profile_stream(dev, db, prof.n_items, min_support)
-    rows = report(recorders, df_recorders, entry_inputs, launches, worst,
-                  stream_spy)
+    rows = report([("bucket", recorders), ("depth-first", df_recorders),
+                   ("quickstart chess bucket", quick_recs),
+                   ("streaming-patterns retail initial refresh",
+                    stream_recs)],
+                  entry_inputs, launches, worst, stream_spy)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

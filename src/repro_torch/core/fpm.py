@@ -51,7 +51,7 @@ import collections
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -324,6 +324,8 @@ class DeltaPlan:
     swept_full: int = 0
     swept_delta: int = 0
     reused: int = 0
+    # candidates the engines swept in this refresh (fresh or dirty)
+    swept: Set[Itemset] = field(default_factory=set)
 
     def is_dirty(self, c: Itemset) -> bool:
         d = self.dirty_items
@@ -352,11 +354,26 @@ class DeltaPlan:
                     fresh.append(c)
                 elif p_dirty and e in ditems:
                     d_exts.append(e)
+                    self.swept.add(c)
                 else:
                     clean.append((c, ks))
             if d_exts:
                 dirty.append(Bucket(b.key, p, tuple(d_exts)))
+        self.swept.update(fresh)
         return clean, dirty, fresh
+
+    def drop_unswept(self) -> None:
+        """Drop every known candidate whose support may have changed (all
+        its items dirty) that no engine swept in this refresh. Such a
+        candidate fell off the candidate frontier: under a fraction
+        threshold one of its subsets died. Its count misses the pending
+        segments, and a later delta sweep (pending segments only) would
+        never add them, so it must be swept in full if it returns. Under
+        a fixed count nothing dies and nothing drops."""
+        stale = [x for x in self.known
+                 if len(x) >= 2 and x not in self.swept and self.is_dirty(x)]
+        for x in stale:
+            del self.known[x]
 
 
 class EngineRuntime:
@@ -1218,6 +1235,7 @@ class _ClassMiner:
                         supports.append((e, s))
                 with delta.lock:
                     delta.known.update(updates)
+                    delta.swept.update(updates)
                     delta.swept_full += len(fresh_e)
                     delta.swept_delta += len(dirty_e)
                     delta.reused += n_clean

@@ -640,3 +640,60 @@ def test_device_list_streaming_mesh_on_two_cards(two_cards):
             sum(1 for t in txs if set(x) <= set(t)) for x in probes]
     finally:
         sm.close()
+
+
+# ------------------------------------------------ the example scripts
+def _example(name):
+    import importlib
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]
+                           / "examples"))
+    return importlib.import_module(name)
+
+
+def test_quickstart_example_on_card(cuda):
+    """``examples/torch_quickstart.py`` on the card, chess cut to 400
+    transactions at max_k=3: every run equals ``mine_serial`` (the script
+    checks it) and the bucket and depth-first runs launch the dense
+    kernel."""
+    tq = _example("torch_quickstart")
+    bj.launches = 0
+    got = tq.run(n_transactions=400, max_k=3, out=lambda *_: None)
+    assert bj.launches > 0
+    met = {g: m for g, (_, m) in got["granularities"].items()}
+    assert met["bucket"].flushes > 0 and met["depth-first"].flushes > 0
+    assert met["depth-first"].cache_misses == 0
+    assert got["serial"] == got["granularities"]["bucket"][0]
+
+
+def test_distributed_example_on_card(cuda):
+    """``examples/torch_distributed_mining.py`` on the card, mushroom cut
+    to 400 transactions over eight shards (logical on a host with fewer
+    cards): every mine equals ``mine_serial`` and each shard flushed."""
+    tdm = _example("torch_distributed_mining")
+    got = tdm.run(n_transactions=400, max_k=3, out=lambda *_: None)
+    for res, met, _ in got["granularities"].values():
+        assert res == got["serial"]
+        assert met.n_devices == 8
+        assert all(d["flushes"] > 0 for d in met.per_device)
+    for res, stats, _ in got["policies"].values():
+        assert res == got["serial"] and stats["n_devices"] == 8
+
+
+def test_streaming_example_on_card(cuda):
+    """``examples/torch_streaming_patterns.py`` on the card, retail cut to
+    2,000 + 2 x 200 transactions at max_k=3: every generation equals
+    ``mine_serial`` at its threshold, and ``support()`` of the top
+    itemset equals a host count."""
+    tsp = _example("torch_streaming_patterns")
+    from repro_torch.data.transactions import load
+    got = tsp.run(n_initial=2000, n_batches=2, batch_size=200, max_k=3,
+                  out=lambda *_: None)
+    db, prof = load("retail", seed=0)
+    for rep, supports in got["generations"]:
+        assert supports == repro_torch.mine_serial(
+            pack_database(db[:rep.n_transactions], prof.n_items),
+            rep.min_support, max_k=3)
+    x = got["itemset"]
+    assert got["support"] == sum(1 for t in db[:2400] if set(x) <= set(t))

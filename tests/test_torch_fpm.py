@@ -409,8 +409,10 @@ def _imported_roots(path):
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "_index_cases.py",
-              *sorted((ROOT / "tools").glob("*.py"))]
+              *sorted((ROOT / "tools").glob("*.py")),
+              *sorted((ROOT / "examples").glob("torch_*.py"))]
     assert len(files) > 10
+    assert ROOT / "examples" / "torch_quickstart.py" in files
     for name in ("cluster.py", "distributed_fpm.py"):
         assert ROOT / "src" / "repro_torch" / "core" / name in files
     for f in files:

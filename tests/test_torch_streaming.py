@@ -319,6 +319,67 @@ def test_fixed_absolute_threshold_nothing_dies():
         sm.close()
 
 
+# A candidate that falls off the frontier and comes back, under a
+# fraction threshold of 0.5: (0, 1, 2) is swept at generation 1 (a
+# border itemset, support 1); at generation 2 its subset (1, 2) dies, so
+# it is no candidate and its known count misses the new segment's
+# occurrence; at generation 3 (1, 2) returns and (0, 1, 2) (support 8 of
+# 16) is frequent again.
+RETURN_INIT = [[0, 1, 2], [0, 1], [0, 2], [1, 2]]
+RETURN_BATCHES = ([[0, 1, 2], [0, 1], [0, 2], [0, 1], [0, 2], [0]],
+                  [[0, 1, 2]] * 6)
+
+
+def _returning(miner):
+    """Refresh ``miner`` at each of the three generations; returns each
+    generation's (min_support, supports, border)."""
+    out = []
+    try:
+        for batch in ((),) + RETURN_BATCHES:
+            if batch:
+                miner.ingest(batch)
+            rep = miner.refresh()
+            snap = miner.snapshot
+            out.append((rep.min_support, dict(snap.supports),
+                        dict(snap.border)))
+    finally:
+        miner.close()
+    return out
+
+
+@pytest.mark.parametrize("granularity",
+                         ["bucket", "candidate", "depth-first", "auto"])
+def test_candidate_returning_after_a_death_is_exact(granularity):
+    """Every generation equals the batch mine at its threshold, and every
+    border support is exact: a known candidate whose subset died is
+    swept in full when it returns, not delta-swept from a stale count."""
+    gens = _returning(port_miner(3, 0.5, initial_db=RETURN_INIT,
+                                 granularity=granularity, n_workers=1,
+                                 max_k=3))
+    db = list(RETURN_INIT)
+    for (ms, supports, border), batch in zip(gens, ((),) + RETURN_BATCHES):
+        db += batch
+        assert supports == brute_force_frequent(db, ms, max_k=3)
+        for x, s in border.items():
+            assert s == sum(set(x) <= set(t) for t in db), x
+    assert gens[2][1][(0, 1, 2)] == 8
+
+
+def test_stale_returning_candidate_is_the_known_divergence():
+    """The reference's streaming miner keeps the stale count: at
+    generation 2 its border serves (0, 1, 2) at 1 (true: 2), and at
+    generation 3 it misses (0, 1, 2) (true: 8, the threshold 8). The
+    port drops the stale entry (``DeltaPlan.drop_unswept``)."""
+    kw = dict(initial_db=RETURN_INIT, n_workers=1, max_k=3)
+    ref = _returning(rs.StreamingMiner(3, 0.5, backend="numpy", **kw))
+    got = _returning(port_miner(3, 0.5, **kw))
+    assert ref[0] == got[0]
+    assert ref[1][2][(0, 1, 2)] == 1 and (0, 1, 2) not in got[1][2]
+    assert (0, 1, 2) not in ref[2][1] and got[2][1][(0, 1, 2)] == 8
+    assert {x: s for x, s in got[2][1].items() if x != (0, 1, 2)} == \
+        ref[2][1]
+
+
 # ------------------------------------------------- snapshot publication
 def test_snapshot_swap_is_atomic_queries_see_old_generation():
     full = rand_db(400, seed=13)
@@ -436,6 +497,39 @@ def test_property_interleaved_ingest_refresh_equals_batch(data):
         sm.refresh()
         assert dict(sm.snapshot.supports) == brute_force_frequent(
             db, ms, max_k=4)
+    finally:
+        sm.close()
+
+
+@settings(max_examples=10, deadline=None)
+@given(st.data())
+def test_property_fraction_threshold_every_generation_equals_batch(data):
+    """A fraction threshold rises with the database, so itemsets die and
+    return: after every refresh the published generation equals the
+    brute-force frequent set of the refreshed prefix at that
+    generation's threshold."""
+    n_items = data.draw(st.integers(3, 8))
+    n_tx = data.draw(st.integers(8, 60))
+    seed = data.draw(st.integers(0, 10_000))
+    rng = np.random.default_rng(seed)
+    db = [sorted(rng.choice(n_items,
+                            size=rng.integers(1, min(5, n_items) + 1),
+                            replace=False).tolist())
+          for _ in range(n_tx)]
+    cuts = sorted(data.draw(st.lists(st.integers(1, n_tx), min_size=2,
+                                     max_size=5)))
+    granularity = data.draw(st.sampled_from(["bucket", "depth-first"]))
+    frac = data.draw(st.floats(0.1, 0.6))
+    sm = port_miner(n_items, frac, initial_db=db[:cuts[0]],
+                    granularity=granularity, n_workers=2, max_k=4)
+    bounds = cuts + [n_tx]
+    try:
+        for i, n in enumerate(bounds):
+            if i:
+                sm.ingest(db[bounds[i - 1]:n])
+            rep = sm.refresh()
+            assert dict(sm.snapshot.supports) == brute_force_frequent(
+                db[:n], rep.min_support, max_k=4)
     finally:
         sm.close()
 
