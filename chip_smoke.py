@@ -39,7 +39,8 @@ Phases, each fatal on failure:
               rounds, under torch.profiler for the device busy share and
               the top kernels by device time;
   9. report   time each kernel and its plain version on inputs captured
-              from phases 3, 5 and 7; for the batched kernels also the
+              from phases 3, 5, 7, 13, 22 (chess) and 24 (retail); for
+              the batched kernels also the
               parent design on the same inputs (a gathered [B, E, W]
               copy of mirror rows, then the gathered-form call) and the
               launch floor; print the kernels line and the status line.
