@@ -19,7 +19,8 @@ Phases, each fatal on failure:
               stride and of 79 words), each also against an explicit
               AND-then-join on the host;
   3. main     batch bucket mining of T10I4D100K-size data (100,000
-              transactions x 500 items, min support 0.5%) with
+              transactions x 500 items, min support 0.5%) at max_k=6
+              (``MAIN_MAX_K``; see the end of this text) with
               ``representation="auto"``: supports must equal the host
               ``mine_serial`` and both batched kernels must have
               launched;
@@ -64,7 +65,7 @@ kernels line counts their launches:
               plain versions on a captured call;
  12. launcher the launcher's ``main`` with the arguments of ``python -m
               repro_torch.launch.fpm_mine --dataset t10i4 --policies
-              cilk clustered --max-k 8 --trace-summary`` (the paper's
+              cilk clustered --max-k 6 --trace-summary`` (the paper's
               experiment: 20,000 transactions x 500 items at 0.5%
               support), in this process so that the launch counts are
               set to 0 just before it and read just after; it checks
@@ -74,7 +75,7 @@ kernels line counts their launches:
               call's inputs;
  13. stream   ``StreamingMiner`` on the card over the first 90,000
               phase-3 transactions (bucket grain, clustered, 8 workers,
-              ``arena="jax"``, ``representation="auto"``, max_k=8),
+              ``arena="jax"``, ``representation="auto"``, max_k=6),
               refreshed, then the last 10,000 ingested in two batches,
               each followed by a refresh (compaction at each publish):
               each ingest bills exactly its segment's payload, the final
@@ -91,12 +92,12 @@ kernels line counts their launches:
               (``stream-depth-first``), which puts the depth-first delta
               path on the card;
  14. launcher-stream  the launcher's ``main`` with ``--dataset t10i4
-              --stream 2 --serve 64 --max-k 8`` in this process; it
+              --stream 2 --serve 64 --max-k 6`` in this process; it
               checks the final generation against ``mine_serial``
               itself.
 Four more phases follow, also before the profile, on the phase-3 data
 (clustered, 8 workers per host):
- 15. cluster  ``repro_torch.mine(hosts=2)`` at bucket grain and max_k=8
+ 15. cluster  ``repro_torch.mine(hosts=2)`` at bucket grain and max_k=6
               (supports equal ``mine_serial``, one reduction per flush,
               ``net_bytes`` > 0, ``bitmap_join_many`` launched on both
               hosts' mirrors by their own flushes and by peer
@@ -118,14 +119,14 @@ Four more phases follow, also before the profile, on the phase-3 data
               AND-popcount over that tenant's data), and each final
               snapshot equals ``mine_serial`` of its own 50,000;
  18. hosts    the launcher's ``main`` with ``--dataset t10i4 --hosts 2
-              --max-k 8``: two rank processes on the one card over a
+              --max-k 6``: two rank processes on the one card over a
               TCPStore; rank 0 checks its result against ``mine_serial``,
               each rank prints its kernel launches (parsed here; both
               must be > 0), and a rank's non-zero exit fails the phase.
 Three more phases follow, also before the profile, on two logical
 shards of the one card (two mirrors, two dispatchers, two backends):
  19. mesh     ``repro_torch.mine(mesh=2)`` on the phase-3 data at bucket
-              grain and max_k=8 (supports equal ``mine_serial``, two
+              grain and max_k=6 (supports equal ``mine_serial``, two
               devices, both dispatchers flushed, both batched kernels
               launched on each shard's mirror, ``d2d_bytes`` a whole
               number of rows), then at max_k=4 candidate grain (every
@@ -135,8 +136,8 @@ shards of the one card (two mirrors, two dispatchers, two backends):
               ``steal_migrations`` > 0; of up to three attempts only the
               kept one is counted), a one-device mesh ``[cuda:0]`` at
               phase 4's settings (no d2d) and
-              ``repro_torch.mine_distributed(mesh=2)`` under the
-              clustered policy; each run's wall beside phase 3's (or phase
+              ``repro_torch.mine_distributed(mesh=2)`` under both
+              policies; each run's wall beside phase 3's (or phase
               4's at max_k=4), with per-shard flushes, occupancy,
               ``sweep_s``, ``d2d_bytes`` and ``migrations``;
  20. mesh-stream  ``StreamingMiner(mesh=2)`` on phase 13's stream at
@@ -149,7 +150,7 @@ shards of the one card (two mirrors, two dispatchers, two backends):
               two tenants, each final snapshot equal to ``mine_serial``
               of its own data;
  21. launcher-mesh  the launcher's ``main`` with ``--dataset t10i4 --mesh
-              2 --policies clustered --max-k 4`` in this process; it
+              2 --policies clustered --max-k 6`` in this process; it
               checks ``mine_serial`` itself and prints ``d2d=``,
               ``migrations=`` and ``dev_occ=``.
 Three more phases follow, also before the profile: the ``run`` function
@@ -188,13 +189,13 @@ call of a peer evaluation (``HostSpy``), and in phases 19-21 and 23 the
 first call on each shard's mirror (``ShardSpy``, which attributes every
 launch to the shard whose mirror it was handed).
 
-Cut to fit the time limit: the smoke took 1,039 s of its 1,200 s
-before phases 22-24 (about 35 s on an H100), and its host-bound phases
-vary 5-18% from run to run. Phase 19 runs ``mine_distributed`` under the
-clustered policy only (round_robin took 46.5 s on two shards; phase 23
-runs it over eight), and phase 21 runs the launcher at max_k=4 instead
-of 8 (it took 47 s). No path stops being driven and no kernel loses a
-parity check.
+Depth, cut to fit the time limit: every phase that mines the t10i4 data
+at the main depth (3, 5, 6, 10, 12-15, 18, 19, 21 and the profile) runs
+at max_k=6 (``MAIN_MAX_K``), not 8. At 8 the whole smoke took 1,442.7 s
+of its 1,200 s on an H100 whose host ran phase 3 in 48.7 s (37.6 s on
+another call); levels 7 and 8 carry about half of those mines' work. A
+``clock:`` line after each phase gives its wall and the running total.
+No path stops being driven and no kernel loses a parity check.
 
 The script imports nothing of JAX or of the reference package ``repro``.
 It exits non-zero without a result when no CUDA device is present.
@@ -216,7 +217,7 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests"), str(ROOT / "examples")]
 # integer rate of the CUDA cores (half the 67 TFLOP/s fp32 rate).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
-MAIN_MAX_K = 8
+MAIN_MAX_K = 6                 # T10I4's levels run to 8; see the docstring
 BITMAP_MAX_K = 4
 BENCH_E, BENCH_W = 4096, 4096  # benchmarks/kernels_bench.py's join shape
 SPIN_CYCLES = 200_000_000      # ~0.1 s of GPU spin ahead of a timing
@@ -1066,7 +1067,7 @@ def phase_serve(sm, db, bitmaps, serial):
 
 def phase_launcher_stream():
     """Phase 14: the launcher's ``main`` with ``--dataset t10i4 --stream
-    2 --serve 64 --max-k 8`` in this process, the launch counts set to
+    2 --serve 64 --max-k 6`` in this process, the launch counts set to
     0 just before and read just after; the launcher checks the final
     generation against ``mine_serial`` itself. Returns the launches."""
     from repro_torch.launch import fpm_mine
@@ -1228,7 +1229,7 @@ def spied(run):
 def phase_cluster(dev, bitmaps, counts, min_support, serial, bitmap_met):
     """Phase 15: the multi-host mine on the card, four runs, each with
     the launch counts set to 0 just before it and read just after it:
-    ``repro_torch.mine(hosts=2)`` at bucket grain and max_k=8 (supports
+    ``repro_torch.mine(hosts=2)`` at bucket grain and max_k=6 (supports
     equal ``mine_serial``, one reduction per flush, bytes on the
     interconnect, ``bitmap_join_many`` launched on both hosts' mirrors
     by their own flushes and by peer evaluations with tuple prefixes),
@@ -1494,7 +1495,7 @@ def phase_tenants(dev, db, n_items, min_support):
 
 def phase_hosts():
     """Phase 18: the launcher's ``main`` with ``--dataset t10i4 --hosts 2
-    --max-k 8``: two rank processes on the one card over a TCPStore the
+    --max-k 6``: two rank processes on the one card over a TCPStore the
     launcher hosts. Rank 0 checks its result against ``mine_serial``;
     each rank prints its kernel launches, parsed here (the ranks are
     processes of their own, so their counts start at 0). A rank's
@@ -1694,20 +1695,20 @@ def phase_mesh(dev, bitmaps, counts, min_support, serial, main_met,
     two dispatchers, two backends on the one card), each run with the
     launch counts set to 0 just before it and read just after it, and
     spied on by ``EntrySpy`` and ``ShardSpy``: ``repro_torch.mine(mesh=
-    2)`` at bucket grain and max_k=8 (both batched kernels on each
+    2)`` at bucket grain and max_k=6 (both batched kernels on each
     shard's mirror), then at max_k=4 candidate grain (every join through
     a shard's dispatcher), depth-first grain, every root class on shard
     0's workers (cross-shard steals must migrate handoff rows; of up to
     three attempts only the kept one is counted), a one-device mesh
     (``[cuda:0]`` at phase 4's settings: no d2d) and
-    ``mine_distributed`` under the clustered policy (round_robin runs in
-    phase 23). Returns the launches of each run, by column."""
+    ``mine_distributed`` under both policies. Returns the launches of
+    each run, by column."""
     import torch
     import repro_torch
     from repro_torch.core import scheduler
     row_bytes = bitmaps.shape[1] * 4
     want4 = {c: v for c, v in serial.items() if len(c) <= BITMAP_MAX_K}
-    base8, base4 = (3, main_met.wall_s), (4, bitmap_met.wall_s)
+    base_main, base4 = (3, main_met.wall_s), (4, bitmap_met.wall_s)
     columns = {}
 
     def mine(**kw):
@@ -1771,7 +1772,7 @@ def phase_mesh(dev, bitmaps, counts, min_support, serial, main_met,
         spy.check_route(f"mesh[{label}]", launches, met.sparse_sweeps,
                         indexed=True)
         log_mesh(f"mesh mine[{label}, max_k={max_k}]", wall, met,
-                 base8 if max_k == MAIN_MAX_K else base4,
+                 base_main if max_k == MAIN_MAX_K else base4,
                  f"sparse_sweeps={met.sparse_sweeps} ")
         log(f"  mesh[{label}]: supports==mine_serial ok; launches="
             f"{json.dumps(launches)}, per shard mirror {per_shard}, all "
@@ -1779,28 +1780,28 @@ def phase_mesh(dev, bitmaps, counts, min_support, serial, main_met,
         spy.hold(f"mesh[{label}]")
         shards.hold(f"mesh[{label}]")
         columns[column] = launches
-    # clustered only: phase 23 runs both policies over eight shards
-    (result, stats), wall, launches, spy, shards = mesh_spied(
-        lambda: repro_torch.mine_distributed(
-            bitmaps, min_support, 2, policy="clustered",
-            max_k=BITMAP_MAX_K, device=dev))
-    if result != want4 or stats["n_devices"] != 2:
-        raise SystemExit(f"mesh-distributed[clustered]: supports differ "
-                         f"from mine_serial, or {stats['n_devices']} "
-                         f"devices")
-    per_shard = shards.check("mesh-distributed[clustered]", 2)
-    spy.check_route("mesh-distributed[clustered]", launches, 0,
-                    indexed=True)
-    occ = "/".join(f"{d['batch_occupancy']:.2f}"
-                   for d in stats["per_device"])
-    log(f"mesh-distributed[clustered, max_k={BITMAP_MAX_K}]: wall_s="
-        f"{wall:.3f} (phase 4: {bitmap_met.wall_s:.3f}) rows_touched="
-        f"{stats['rows_touched']} d2d_bytes={stats['d2d_bytes']} "
-        f"migrations={stats['migrations']} dev_occ={occ}; supports=="
-        f"mine_serial ok; launches={json.dumps(launches)}, per shard "
-        f"mirror {per_shard}")
-    spy.hold("mesh-distributed[clustered]")
-    columns["mesh-distributed-clustered"] = launches
+    for policy in ("clustered", "round_robin"):
+        (result, stats), wall, launches, spy, shards = mesh_spied(
+            lambda: repro_torch.mine_distributed(
+                bitmaps, min_support, 2, policy=policy,
+                max_k=BITMAP_MAX_K, device=dev))
+        if result != want4 or stats["n_devices"] != 2:
+            raise SystemExit(f"mesh-distributed[{policy}]: supports differ "
+                             f"from mine_serial, or {stats['n_devices']} "
+                             f"devices")
+        per_shard = shards.check(f"mesh-distributed[{policy}]", 2)
+        spy.check_route(f"mesh-distributed[{policy}]", launches, 0,
+                        indexed=True)
+        occ = "/".join(f"{d['batch_occupancy']:.2f}"
+                       for d in stats["per_device"])
+        log(f"mesh-distributed[{policy}, max_k={BITMAP_MAX_K}]: wall_s="
+            f"{wall:.3f} (phase 4: {bitmap_met.wall_s:.3f}) rows_touched="
+            f"{stats['rows_touched']} d2d_bytes={stats['d2d_bytes']} "
+            f"migrations={stats['migrations']} dev_occ={occ}; supports=="
+            f"mine_serial ok; launches={json.dumps(launches)}, per shard "
+            f"mirror {per_shard}")
+        spy.hold(f"mesh-distributed[{policy}]")
+        columns[f"mesh-distributed-{policy.replace('_', '-')}"] = launches
     return columns
 
 
@@ -1942,7 +1943,7 @@ def phase_mesh_stream(dev, db, n_items, min_support, serial):
 
 def phase_launcher_mesh():
     """Phase 21: the launcher's ``main`` with ``--dataset t10i4 --mesh 2
-    --policies clustered --max-k 4`` in this process, the launch counts
+    --policies clustered --max-k 6`` in this process, the launch counts
     set to 0 just before and read just after; it checks ``mine_serial``
     itself. Its ``mesh:`` line and ``d2d=``, ``migrations=`` and
     ``dev_occ=`` columns must be printed. Returns the launches."""
@@ -1951,7 +1952,7 @@ def phase_launcher_mesh():
     import re
     from repro_torch.launch import fpm_mine
     argv = ["--dataset", "t10i4", "--mesh", "2", "--policies", "clustered",
-            "--max-k", str(BITMAP_MAX_K)]
+            "--max-k", str(MAIN_MAX_K)]
     log(f"launcher-mesh: python -m repro_torch.launch.fpm_mine "
         f"{' '.join(argv)}")
     out = io.StringIO()
@@ -2130,7 +2131,7 @@ def phase_distributed(dev):
                     f"cache_misses={met.cache_misses} "
                     f"candidates={met.candidates} n_devices={met.n_devices}")
             per = met.per_device
-        if len(per) != n or n != 8:
+        if len(per) != n or n != tdm.N_SHARDS:
             raise SystemExit(f"distributed[{label}]: {len(per)} shards")
         occ = "/".join(f"{d['batch_occupancy']:.2f}" for d in per)
         flushes = "/".join(str(d["flushes"]) for d in per)
@@ -2526,8 +2527,17 @@ def main() -> int:
     from repro_torch.data.transactions import load, min_support_count
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    t_last = [t_start]
+
+    def clock(phase):
+        now = time.perf_counter()
+        log(f"clock: {phase} {now - t_last[0]:.1f} s, "
+            f"{now - t_start:.1f} s in all")
+        t_last[0] = now
+
     phase_build()
     worst = phase_parity(dev)
+    clock("build+parity")
 
     t0 = time.perf_counter()
     db, prof = load("t10i4", scale=5)
@@ -2540,6 +2550,7 @@ def main() -> int:
     serial = fpm.mine_serial(bitmaps, min_support, max_k=MAIN_MAX_K)
     log(f"mine_serial max_k={MAIN_MAX_K}: {len(serial)} itemsets in "
         f"{time.perf_counter() - t0:.1f} s (host reference)")
+    clock("data+serial")
 
     def recs():
         return {"bitmap_join_many": Recorder(bitmap_join_many_rows, False),
@@ -2560,12 +2571,14 @@ def main() -> int:
         raise SystemExit(f"a kernel never launched on the main path: "
                          f"{got}")
     note("bucket", got)
+    clock("main")
     got, bitmap_met = phase_mine(dev, bitmaps, counts, min_support,
                                  "bucket", "bitmap", BITMAP_MAX_K, serial)
     if got["bitmap_join_many"] == 0 or got["gather_intersect_many"] != 0:
         raise SystemExit(f"representation='bitmap' must launch only "
                          f"bitmap_join_many: {got}")
     note("bucket-bitmap", got)
+    clock("bitmap")
     df_recorders = recs()
     for granularity in ("depth-first", "auto"):
         got, met = phase_mine(
@@ -2578,14 +2591,19 @@ def main() -> int:
                              f"its sweeps never launched: {got}, "
                              f"sparse_sweeps={met.sparse_sweeps}")
         note(granularity, got)
+        clock(granularity)
     n, entry_inputs = phase_entry(dev, bitmaps, counts)
     note("entry", {"bitmap_join": n})
+    clock("entry")
     note("trace", phase_trace(dev, bitmaps, counts, min_support, serial,
                               main_met.wall_s))
+    clock("trace")
     for backing, got in phase_residency(dev, bitmaps, counts, min_support,
                                         serial).items():
         note(f"residency-{backing}", got)
+    clock("residency")
     note("launcher", phase_launcher())
+    clock("launcher")
     got, sm, stream_spy = phase_stream(dev, db, prof.n_items, bitmaps,
                                        min_support, serial, "bucket",
                                        MAIN_MAX_K, "stream")
@@ -2594,32 +2612,45 @@ def main() -> int:
         note("serve", phase_serve(sm, db, bitmaps, serial))
     finally:
         sm.close()
+    clock("stream+serve")
     got, sm, _ = phase_stream(dev, db, prof.n_items, bitmaps, min_support,
                               serial, "depth-first", BITMAP_MAX_K,
                               "stream-depth-first")
     sm.close()
     note("stream-depth-first", got)
+    clock("stream-depth-first")
     note("launcher-stream", phase_launcher_stream())
+    clock("launcher-stream")
     for column, got in phase_cluster(dev, bitmaps, counts, min_support,
                                      serial, bitmap_met).items():
         note(column, got)
+    clock("cluster")
     note("cluster-stream", phase_cluster_stream(dev, db, prof.n_items,
                                                 min_support, serial))
+    clock("cluster-stream")
     note("tenants", phase_tenants(dev, db, prof.n_items, min_support))
+    clock("tenants")
     note("hosts", phase_hosts())
     note("hosts-loopback", phase_hosts_loopback(dev))
+    clock("hosts")
     for column, got in phase_mesh(dev, bitmaps, counts, min_support, serial,
                                   main_met, bitmap_met).items():
         note(column, got)
+    clock("mesh")
     for column, got in phase_mesh_stream(dev, db, prof.n_items,
                                          min_support, serial).items():
         note(column, got)
+    clock("mesh-stream+mesh-tenants")
     note("launcher-mesh", phase_launcher_mesh())
+    clock("launcher-mesh")
     got, quick_recs = phase_quickstart(dev)
     note("quickstart", got)
+    clock("quickstart")
     note("distributed", phase_distributed(dev))
+    clock("distributed")
     got, stream_recs = phase_streaming_patterns(dev)
     note("streaming-patterns", got)
+    clock("streaming-patterns")
 
     for granularity, representation, max_k in (
             ("bucket", "auto", MAIN_MAX_K),
@@ -2629,11 +2660,13 @@ def main() -> int:
         phase_profile(dev, bitmaps, counts, min_support, granularity,
                       representation, max_k)
     phase_profile_stream(dev, db, prof.n_items, min_support)
+    clock("profile")
     rows = report([("bucket", recorders), ("depth-first", df_recorders),
                    ("quickstart chess bucket", quick_recs),
                    ("streaming-patterns retail initial refresh",
                     stream_recs)],
                   entry_inputs, launches, worst, stream_spy)
+    clock("report")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -31,12 +31,14 @@ from repro_torch.data.transactions import load  # noqa: E402
 
 GRANULARITIES = ("bucket", "depth-first")
 POLICIES = ("round_robin", "clustered")
+N_SHARDS = 8
+N_WORKERS = 8
 
 
-def run(device="cuda", *, backend="auto", n_transactions=2500,
-        n_shards=8, max_k=4, n_workers=8, seed=0, out=print):
+def run(device="cuda", *, backend="auto", n_transactions=2500, max_k=4,
+        out=print):
     """The script's mines on ``device``: ``mine(mesh=)`` over
-    ``n_shards`` shards at bucket and depth-first grain, then
+    ``N_SHARDS`` shards at bucket and depth-first grain, then
     ``mine_distributed`` under each policy, every result checked equal
     to ``mine_serial``. On the CPU the shards are logical; on the card
     :func:`mesh_over_devices` picks real devices when the host has
@@ -44,14 +46,14 @@ def run(device="cuda", *, backend="auto", n_transactions=2500,
     {granularity: (res, met, wall)}, "policies": {policy: (res, stats,
     wall)}}``."""
     dev = resolve_device(device)
-    db, p = load("mushroom", seed=seed)
+    db, p = load("mushroom", seed=0)
     db = db[:n_transactions]
     bm = pack_database(db, p.n_dense_items)
     ms = int(0.22 * len(db))
-    mesh = n_shards if dev.type == "cpu" else mesh_over_devices(n_shards)
+    mesh = N_SHARDS if dev.type == "cpu" else mesh_over_devices(N_SHARDS)
     where = ("logical shards" if isinstance(mesh, int)
              else "cuda devices")
-    out(f"{len(db)} transactions over {n_shards} {where} on {dev}, "
+    out(f"{len(db)} transactions over {N_SHARDS} {where} on {dev}, "
         f"min_support={ms}")
     ref = mine_serial(bm, ms, max_k=max_k)
     done = {"min_support": ms, "serial": ref, "granularities": {},
@@ -62,7 +64,7 @@ def run(device="cuda", *, backend="auto", n_transactions=2500,
         t0 = time.time()
         res, met = mine(bm, ms, mesh=mesh, device=dev, backend=backend,
                         granularity=gran, policy="clustered",
-                        n_workers=n_workers, max_k=max_k)
+                        n_workers=N_WORKERS, max_k=max_k)
         wall = time.time() - t0
         if res != ref:
             raise SystemExit(f"granularity={gran} result differs from "

@@ -42,7 +42,7 @@ GRANULARITIES = ("candidate", "bucket", "depth-first")
 
 def run(device="cuda", *, backend="auto", arena="auto", max_batch=32,
         flush_us=200.0, mesh=None, n_transactions=None, max_k=4,
-        n_workers=4, seed=0, out=print):
+        n_workers=4, out=print):
     """The quickstart's mines on ``device``: the serial reference, each
     policy at candidate grain, then each granularity under the clustered
     policy, every result checked equal to the reference. ``mesh`` is
@@ -53,7 +53,7 @@ def run(device="cuda", *, backend="auto", arena="auto", max_batch=32,
     dev = resolve_device(device)
     knobs = dict(device=dev, backend=backend, arena=arena,
                  max_batch=max_batch, flush_us=flush_us, mesh=mesh)
-    db, prof = load("chess", seed=seed)
+    db, prof = load("chess", seed=0)
     db = db[:n_transactions]
     bitmaps = pack_database(db, prof.n_dense_items)
     min_support = int(prof.support * len(db))

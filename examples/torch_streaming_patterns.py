@@ -22,7 +22,7 @@ from repro_torch.data.transactions import load  # noqa: E402
 
 
 def run(device="cuda", *, backend="auto", n_initial=10000, n_batches=4,
-        batch_size=None, n_workers=4, max_k=5, seed=0, out=print):
+        batch_size=None, n_workers=4, max_k=5, out=print):
     """The script's stream on ``device``: the first ``n_initial``
     'retail' transactions mined, then ``n_batches`` ingests of
     ``batch_size`` transactions each (None: the rest of the database in
@@ -31,7 +31,7 @@ def run(device="cuda", *, backend="auto", n_initial=10000, n_batches=4,
     report, supports)], "ingests": [ingest report], "top3": [answer],
     "itemset", "support"}``."""
     dev = resolve_device(device)
-    db, prof = load("retail", seed=seed)
+    db, prof = load("retail", seed=0)
     init, stream = db[:n_initial], db[n_initial:]
     step = batch_size or len(stream) // n_batches
     done = {"generations": [], "ingests": [], "top3": []}

@@ -369,7 +369,8 @@ class DeltaPlan:
         threshold one of its subsets died. Its count misses the pending
         segments, and a later delta sweep (pending segments only) would
         never add them, so it must be swept in full if it returns. Under
-        a fixed count nothing dies and nothing drops."""
+        a fixed count nothing dies, so the streams call this only under a
+        fraction threshold."""
         stale = [x for x in self.known
                  if len(x) >= 2 and x not in self.swept and self.is_dirty(x)]
         for x in stale:

@@ -865,7 +865,8 @@ class StreamingMiner:
                 metrics = run.finalize(t0)
                 metrics.h2d_bytes = arena.h2d_bytes - h2d0
                 metrics.d2d_bytes = arena.d2d_bytes - d2d0
-            plan.drop_unswept()
+            if isinstance(self._ms_spec, float):
+                plan.drop_unswept()
 
             # exact assembly from the reuse store: skipped (clean)
             # subtrees never touched `result`, but their supports are in
@@ -1253,7 +1254,8 @@ class Tenant:
             metrics = run.finalize(t0)
             metrics.h2d_bytes = arena.h2d_bytes - h2d0
             metrics.d2d_bytes = arena.d2d_bytes - d2d0
-            plan.drop_unswept()
+            if isinstance(self._ms_spec, float):
+                plan.drop_unswept()
             final = dict(singles)
             border: Dict[Itemset, int] = {}
             for x, s in known.items():

@@ -95,18 +95,18 @@ def test_quickstart_matches_reference():
 
 
 def test_distributed_mining_matches_reference():
-    """Mushroom cut to 800 transactions over eight logical shards, eight
-    workers: supports of all four mines, and the gauges no schedule
-    moves — candidates, levels, frequent, shards, and at bucket grain
-    and through ``mine_distributed`` no cross-shard traffic — equal the
+    """Mushroom cut to 800 transactions at max_k=3 over eight logical
+    shards, eight workers: supports of all four mines, and the gauges no
+    schedule moves — candidates, levels, frequent, shards, and at bucket
+    grain and through ``mine_distributed`` no cross-shard traffic — equal the
     reference's; round_robin (no cache, every candidate its full join)
     reads exactly the reference's rows. Which worker steals decides the
     cached-prefix rows and the depth-first handoff traffic, so those
     are held by structure: clustered reads fewer rows than round_robin,
     and depth-first bills whole migrated or fetched rows."""
-    n_tx, shards, max_k = 800, 8, 4
-    got = tdm.run("cpu", backend="torch", n_transactions=n_tx,
-                  n_shards=shards, max_k=max_k, out=quiet)
+    n_tx, shards, max_k = 800, tdm.N_SHARDS, 3
+    got = tdm.run("cpu", backend="torch", n_transactions=n_tx, max_k=max_k,
+                  out=quiet)
     db, p = rload("mushroom", seed=0)
     db = db[:n_tx]
     bm = rpack(db, p.n_dense_items)
@@ -116,7 +116,7 @@ def test_distributed_mining_matches_reference():
     for gran in tdm.GRANULARITIES:
         res, met, _ = got["granularities"][gran]
         want, wmet = rfpm.mine(bm, ms, mesh=shards, granularity=gran,
-                               policy="clustered", n_workers=8,
+                               policy="clustered", n_workers=tdm.N_WORKERS,
                                max_k=max_k, backend="numpy")
         assert res == want == ref, gran
         for g in ("candidates", "levels", "frequent", "n_devices"):
