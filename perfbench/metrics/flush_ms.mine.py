@@ -1,0 +1,3 @@
+"""Mean host time of a dispatcher flush (Tracer "flush" spans) in the
+window's mines, in ms."""
+from perfbench.readers import flush_ms as read  # noqa: F401
