@@ -1,0 +1,6 @@
+"""Garbage collection (Tracer "gc" spans, lane "gc") per mine, in ms."""
+from perfbench.spans import ms_per_call
+
+
+def read(rd):
+    return ms_per_call(rd, ("gc",))

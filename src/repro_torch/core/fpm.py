@@ -32,8 +32,10 @@ mirror is synced incrementally — repeated sweeps cost ~one initial
 upload (``MiningMetrics.h2d_bytes``) instead of one upload per sweep.
 
 ``mine(trace=Tracer())`` records the run's timeline (repro_torch.obs):
-worker task/steal/park spans, dispatcher flush spans, the arena's
-mirror syncs and the driver's level spans. ``mine_more(delta=)`` is the
+worker task/steal/park/prefix spans, dispatcher flush and launch spans,
+the arena's mirror syncs, the driver's arena build, level 1 and level
+spans (each level's candidates, plan and collect inside), and the
+call's garbage collections. ``mine_more(delta=)`` is the
 streaming refresh's incremental re-mine (``DeltaPlan``; driven by
 ``repro_torch.core.streaming``). ``mine(hosts=N)`` runs the same
 engines over N word-sliced host arenas with two-phase support counting
@@ -68,8 +70,14 @@ from repro_torch.core.scheduler import TaskScheduler, make_policy
 from repro_torch.core.tidlist import BitmapArena, resolve_device
 from repro_torch.obs import MetricsRegistry
 from repro_torch.obs import schema as obs_schema
+from repro_torch.obs.tracer import with_gc_spans
 
 GRANULARITIES = ("bucket", "candidate", "depth-first", "auto")
+# trace category of the host work that keeps the card waiting (arena
+# build, level 1, level planning and collection, prefix building, the
+# stream's delta bookkeeping): a category of its own, so the time-in-
+# state accounting bills it to "other", never to eval or sweep
+HOST_CAT = "host"
 
 
 @dataclass
@@ -196,6 +204,8 @@ class _PrefixCache:
             arena.retain(h)
             return h, 0
         self.misses += 1
+        tr = arena.tracer
+        t0 = tr.now() if tr is not None else 0.0
         # hierarchical fallback: longest cached ancestor prefix
         for cut in range(len(prefix) - 1, 1, -1):
             parent = prefix[:cut]
@@ -212,13 +222,19 @@ class _PrefixCache:
             for item in prefix[1:]:
                 bm &= self._row(item)
             rows_read = len(prefix)
-        if (self.model is not None and self.model.pick_rep(
-                int(tidlist.popcount32(bm).sum())) != "bitmap"):
+        rep = "bitmap"
+        if self.model is not None:
+            rep = self.model.pick_rep(int(tidlist.popcount32(bm).sum()))
+        if rep != "bitmap":
             h = arena.sparsify_push(bm, shard=self.shard, cover=self.upto)
         else:
             h = arena.push(bm, shard=self.shard, cover=self.upto)
         arena.retain(h)           # the caller's reference, BEFORE _put:
         self._put(prefix, h)      # maxsize=0 evicts-and-releases at once
+        if tr is not None:
+            # a worker-lane child of its task span, in no sweep state
+            tr.span("prefix", t0, cat=HOST_CAT,
+                    args={"rows_read": rows_read, "rep": rep})
         return h, rows_read
 
     def drain(self) -> None:
@@ -630,26 +646,49 @@ def mine(bitmaps: np.ndarray, min_support: int, *,
             raise ValueError("hosts= and mesh= are mutually exclusive "
                              "(a host owns its whole slice)")
         from repro_torch.core.cluster import mine_cluster
-        return mine_cluster(bitmaps, min_support, hosts=hosts, device=dev,
-                            policy=policy, n_workers=n_workers,
-                            max_k=max_k, cache_size=cache_size,
-                            granularity=granularity, backend=backend,
-                            max_batch=max_batch, flush_us=flush_us,
-                            item_counts=item_counts, tracer=trace)
+        return with_gc_spans(
+            trace, mine_cluster, bitmaps, min_support, hosts=hosts,
+            device=dev, policy=policy, n_workers=n_workers, max_k=max_k,
+            cache_size=cache_size, granularity=granularity,
+            backend=backend, max_batch=max_batch, flush_us=flush_us,
+            item_counts=item_counts, tracer=trace)
+    return with_gc_spans(trace, _mine_local, bitmaps, min_support, dev,
+                         policy, n_workers, max_k, cache_size, granularity,
+                         backend, max_batch, flush_us, representation,
+                         item_counts, arena, mesh, trace)
+
+
+def _mine_local(bitmaps, min_support, dev, policy, n_workers, max_k,
+                cache_size, granularity, backend, max_batch, flush_us,
+                representation, item_counts, arena, mesh, tr):
+    """``mine`` on one host: build the arena, count level 1, mine the
+    rest on a fresh run."""
+    if tr is not None:
+        # the calling thread drives the whole call: name its lane before
+        # the arena build, so that build and level 1 land on it too
+        tr.set_lane("driver", sort_index=0)
+        t_build = tr.now()
     n_shards, devices = _resolve_mesh(mesh)
     store = BitmapArena.from_bitmaps(bitmaps, device=dev, backing=arena,
                                      n_shards=n_shards, devices=devices)
+    if tr is not None:
+        tr.span("arena-build", t_build, cat=HOST_CAT,
+                args={"items": bitmaps.shape[0], "words": bitmaps.shape[1]})
     t0 = time.perf_counter()
+    t_items = tr.now() if tr is not None else 0.0
     # level 1 before the runtime spins up worker/dispatcher threads:
     # if it raises there is nothing to tear down
     if item_counts is None:
         item_counts = tidlist.popcount32(bitmaps).sum(axis=1)
     result, frequent = _level1(bitmaps, min_support, counts=item_counts)
+    if tr is not None:
+        tr.span("items", t_items, cat=HOST_CAT,
+                args={"frequent": len(frequent)})
     run = MiningRun(store, policy=policy, n_workers=n_workers,
                     granularity=granularity, cache_size=cache_size,
                     backend=backend, max_batch=max_batch,
                     flush_us=flush_us, representation=representation,
-                    item_counts=item_counts, tracer=trace)
+                    item_counts=item_counts, tracer=tr)
     run.metrics.frequent += len(frequent)
     try:
         mine_more(run, min_support, max_k, result, frequent)
@@ -942,6 +981,13 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
         # waited on every detached class task)
         cands = (gen_candidates(frequent, known_frequent=result)
                  if df_miner is not None else gen_candidates(frequent))
+        if tr is not None:
+            # driver-lane children of the level span: the host's serial
+            # work before the first task and after the barrier
+            tr.span("candidates", t_level, cat=HOST_CAT,
+                    args={"candidates": len(cands)})
+            t_plan = tr.now()
+            buckets0 = metrics.buckets
         if not cands:
             break
         metrics.levels += 1
@@ -950,10 +996,15 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
         level: List[Tuple[Itemset, int]] = []
         if delta is None:
             collect = _spawn_sweeps(cands, None)
+            if tr is not None:
+                tr.span("plan", t_plan, cat=HOST_CAT,
+                        args={"candidates": len(cands),
+                              "buckets": metrics.buckets - buckets0})
             if cluster is None:
                 sched.wait_all()
             else:
                 cluster.level_wait(sched)
+            t_collect = tr.now() if tr is not None else 0.0
             if df_miner is not None:
                 _raise_task_errors(detached_tasks)
                 df_miner.raise_errors()
@@ -964,18 +1015,26 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
             clean, dirty, fresh = delta.classify_buckets(
                 group_by_prefix(cands))
             level.extend(clean)                 # clean: zero rows read
+            n_dirty = sum(len(b.exts) for b in dirty)
             if cluster is None or cluster.host_id == 0:
                 # loopback hosts share the plan: bill its avoided-work
                 # counters once, not once per host
                 delta.reused += len(clean)
                 delta.swept_full += len(fresh)
-                delta.swept_delta += sum(len(b.exts) for b in dirty)
+                delta.swept_delta += n_dirty
             if cluster is not None:
                 dirty = [b for b in dirty if cluster.owns(b.prefix)]
             collect_fresh = _spawn_sweeps(fresh, delta.base_segments)
             collect_dirty = _spawn_delta_chunks(dirty)
+            if tr is not None:
+                tr.span("plan", t_plan, cat=HOST_CAT,
+                        args={"candidates": len(cands),
+                              "buckets": metrics.buckets - buckets0,
+                              "clean": len(clean), "dirty": n_dirty,
+                              "fresh": len(fresh)})
             if cluster is None:
                 sched.wait_all()
+                t_collect = tr.now() if tr is not None else 0.0
                 for c, s in collect_fresh():
                     delta.known[c] = s
                     level.append((c, s))
@@ -985,6 +1044,7 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
                     level.append((c, s))
             else:
                 cluster.level_wait(sched)
+                t_collect = tr.now() if tr is not None else 0.0
                 mined = ([(c, s, True) for c, s in collect_fresh()]
                          + [(c, d, False) for c, d in collect_dirty()])
 
@@ -1008,6 +1068,10 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
         frequent.sort()
         metrics.frequent += len(frequent)
         if tr is not None:
+            # in a cluster run this includes the level exchange
+            tr.span("collect", t_collect, cat=HOST_CAT,
+                    args={"candidates": len(level),
+                          "frequent": len(frequent)})
             # driver-lane level span: the barrier-to-barrier extent
             tr.span(f"level-{k}", t_level, cat="level",
                     args={"candidates": len(cands),

@@ -102,7 +102,12 @@ class SweepRequest:
     host that built it), so the cluster's cross-host reduction
     re-evaluates the flush from descriptors; call sites sweeping a
     derived handle pass the prefix itemset here. Tuple prefixes and
-    base-row handles describe themselves; single-host runs ignore it."""
+    base-row handles describe themselves; single-host runs ignore it.
+
+    ``flush`` and ``flush_t0`` are stamped by a traced dispatcher: the
+    id of the flush that carried the request (``Tracer.serial``) and
+    that flush's start on the tracer's clock; an untraced run leaves
+    them at 0."""
     prefix_handle: "int | Tuple[int, ...]"
     ext_handles: Tuple[int, ...]
     shard: int = 0
@@ -110,6 +115,8 @@ class SweepRequest:
     priority: bool = False
     desc: Optional[Tuple[int, ...]] = None
     future: Future = field(default_factory=Future)
+    flush: int = 0
+    flush_t0: float = 0.0
 
     @property
     def prefix_handles(self) -> Tuple[int, ...]:
@@ -364,10 +371,14 @@ class TorchBackend(JoinBackend):
         self._stage, host = self._host(self._stage, n, device)
         return host.numpy()
 
-    def _launch(self, device, n, entry):
+    def _launch(self, arena, seg, kernel, b, e, device, n, entry):
         """Ship the first ``n`` staged slots with one H→D copy, run
         ``entry(index_tensor)`` and read its [B, E] counts back through
-        one D→H copy into pinned memory (then wait for the stream)."""
+        one D→H copy into pinned memory (then wait for the stream).
+        Traced as a ``launch`` span naming the ``kernel``, its ``b``
+        requests, their widest ``e`` extensions and segment ``seg``."""
+        tr = arena.tracer
+        t0 = tr.now() if tr is not None else 0.0
         idx = self._stage[:n].to(device, non_blocking=True)
         counts = entry(idx)
         self._counts, out = self._host(self._counts, counts.numel(), device)
@@ -375,6 +386,9 @@ class TorchBackend(JoinBackend):
         out.copy_(counts, non_blocking=True)
         if device.type == "cuda":
             torch.cuda.current_stream(device).synchronize()
+        if tr is not None:
+            tr.span("launch", t0, cat="flush",
+                    args={"kernel": kernel, "B": b, "E": e, "segment": seg})
         return out.numpy()
 
     @staticmethod
@@ -429,10 +443,11 @@ class TorchBackend(JoinBackend):
         self._fill_eidx(host[np_:].reshape(b, e), requests)
         # single-row prefixes keep the [B] index of a batch mine
         shape = (b, lmax) if lmax > 1 else (b,)
-        return self._launch(mirror.device, np_ + b * e, lambda idx: (
-            bitmap_join_many_rows(mirror, idx[:np_].view(shape), mirror,
-                                  idx[np_:].view(b, e),
-                                  arena.seg_words(seg))))
+        return self._launch(
+            arena, seg, "bitmap_join_many", b, e, mirror.device, np_ + b * e,
+            lambda idx: bitmap_join_many_rows(
+                mirror, idx[:np_].view(shape), mirror, idx[np_:].view(b, e),
+                arena.seg_words(seg)))
 
     def _sweep_dense_gathered(self, arena, seg, requests, e, lmax, device):
         """Host-gather dense sweep of one segment: ``[prefixes [B', W] |
@@ -454,8 +469,10 @@ class TorchBackend(JoinBackend):
             prefixes &= rows[pidx[:, j]]
         self._gather_exts(rows, requests, bp, ep, host[bp * w:])
         arena.count_h2d((bp + bp * ep) * w * 4)
-        return self._launch(device, n, lambda x: bitmap_join_many(
-            x[:bp * w].view(bp, w), x[bp * w:].view(bp, ep, w)))
+        return self._launch(
+            arena, seg, "bitmap_join_many", b, e, device, n,
+            lambda x: bitmap_join_many(x[:bp * w].view(bp, w),
+                                       x[bp * w:].view(bp, ep, w)))
 
     def _sweep_sparse(self, arena, seg, requests):
         """Sparse sub-batch of one segment: prefixes are tid/diffset
@@ -485,10 +502,11 @@ class TorchBackend(JoinBackend):
         tids.fill(-1)
         for i, t in enumerate(payloads):
             tids[i, :len(t)] = t
-        return self._launch(mirror.device, n, lambda idx: (
-            gather_intersect_many_rows(
+        return self._launch(
+            arena, seg, "gather_intersect_many", b, e, mirror.device, n,
+            lambda idx: gather_intersect_many_rows(
                 idx[b * e + b:].view(b, s), idx[b * e:b * e + b], mirror,
-                idx[:b * e].view(b, e), arena.seg_words(seg))))
+                idx[:b * e].view(b, e), arena.seg_words(seg)))
 
     def _sweep_sparse_gathered(self, arena, seg, requests, payloads, e, s,
                                device):
@@ -506,8 +524,10 @@ class TorchBackend(JoinBackend):
         self._gather_exts(arena.seg_view(seg), requests, bp, ep,
                           host[bp * sp:])
         arena.count_h2d((bp * ep * w + bp * sp) * 4)
-        return self._launch(device, n, lambda x: gather_intersect_many(
-            x[:bp * sp].view(bp, sp), x[bp * sp:].view(bp, ep, w)))
+        return self._launch(
+            arena, seg, "gather_intersect_many", b, e, device, n,
+            lambda x: gather_intersect_many(x[:bp * sp].view(bp, sp),
+                                            x[bp * sp:].view(bp, ep, w)))
 
 
 _REGISTRY: Dict[str, Callable[[], JoinBackend]] = {
@@ -615,14 +635,24 @@ class SweepDispatcher:
     # ------------------------------------------------------------ client --
     def _make_requests(self, sweeps: Sequence[Tuple],
                        segments: Optional[Sequence[int]],
-                       priority: bool = False) -> List[SweepRequest]:
+                       priority: bool = False,
+                       desc: Optional[Tuple[int, ...]] = None
+                       ) -> List[SweepRequest]:
         segs = tuple(segments) if segments is not None else None
         return [SweepRequest(
                     (tuple(int(h) for h in p) if isinstance(p, tuple)
                      else int(p)),
                     tuple(e), shard=self.shard, segments=segs,
-                    priority=priority)
+                    priority=priority, desc=desc)
                 for p, e in sweeps]
+
+    def _submit(self, sweeps: Sequence[Tuple],
+                segments: Optional[Sequence[int]], priority: bool = False,
+                desc: Optional[Tuple[int, ...]] = None
+                ) -> List[SweepRequest]:
+        reqs = self._make_requests(sweeps, segments, priority, desc)
+        self._enqueue(reqs, priority)
+        return reqs
 
     def _enqueue(self, reqs: List[SweepRequest], priority: bool) -> None:
         with self._cv:
@@ -644,11 +674,8 @@ class SweepDispatcher:
         """Enqueue one sweep; ``prefix_handle`` is a handle or a tuple of
         handles, ``segments`` restricts it to a segment subset, ``desc``
         is the prefix itemset a cluster peer evaluates."""
-        req = self._make_requests([(prefix_handle, ext_handles)],
-                                  segments, priority)[0]
-        req.desc = desc
-        self._enqueue([req], priority)
-        return req.future
+        return self._submit([(prefix_handle, ext_handles)], segments,
+                            priority, desc)[0].future
 
     def submit_many(self, sweeps: Sequence[Tuple],
                     segments: Optional[Sequence[int]] = None,
@@ -659,9 +686,7 @@ class SweepDispatcher:
         query-class: it goes to the front of the pending queue (order
         kept within the burst) and shortens the straggler wait to
         ``query_flush_us``."""
-        reqs = self._make_requests(sweeps, segments, priority)
-        self._enqueue(reqs, priority)
-        return [r.future for r in reqs]
+        return [r.future for r in self._submit(sweeps, segments, priority)]
 
     def sweep_local(self, sweeps: Sequence[Tuple],
                     segments: Optional[Sequence[int]] = None
@@ -678,8 +703,20 @@ class SweepDispatcher:
         if not sweeps:
             return []
         if not self.backend.host_parallel:
-            return [f.result()
-                    for f in self.submit_many(sweeps, segments=segments)]
+            tr = self.tracer
+            if tr is None:
+                return [f.result()
+                        for f in self.submit_many(sweeps, segments=segments)]
+            t0 = tr.now()
+            reqs = self._submit(sweeps, segments)
+            results = [r.future.result() for r in reqs]
+            # the caller's blocked time, as ``sweep`` records it; the
+            # burst's last request names the flush that ended the wait
+            tr.span("sweep", t0, cat="sweep",
+                    args={"requests": len(reqs), "flush": reqs[-1].flush,
+                          "queued_s": sum(r.flush_t0 - t0 for r in reqs)
+                          / len(reqs)})
+            return results
         reqs = self._make_requests(sweeps, segments)
         with self._cv:
             if self._stop:
@@ -696,7 +733,8 @@ class SweepDispatcher:
             # inline burst: the flush span lands on the calling worker's
             # lane (that is where the time went)
             self.tracer.span("flush", t0, cat="flush",
-                             args=self._flush_args(reqs, inline=True))
+                             args=self._flush_args(
+                                 reqs, self.tracer.serial(), inline=True))
         return results
 
     def sweep(self, prefix_handle, ext_handles: Sequence[int],
@@ -708,10 +746,14 @@ class SweepDispatcher:
             return self.submit(prefix_handle, ext_handles,
                                segments=segments, desc=desc).result()
         t0 = tr.now()
-        counts = self.submit(prefix_handle, ext_handles,
-                             segments=segments, desc=desc).result()
-        # caller-side wait: nests inside the worker's task span
-        tr.span("sweep", t0, cat="sweep", args={"ext": len(ext_handles)})
+        req = self._submit([(prefix_handle, ext_handles)], segments,
+                           desc=desc)[0]
+        counts = req.future.result()
+        # caller-side wait: nests inside the worker's task span; it
+        # names the flush that answered and the wait before that flush
+        tr.span("sweep", t0, cat="sweep",
+                args={"ext": len(ext_handles), "flush": req.flush,
+                      "queued_s": req.flush_t0 - t0})
         return counts
 
     def sweep_bits(self, prefix_handle: int, ext_handles: Sequence[int],
@@ -730,8 +772,8 @@ class SweepDispatcher:
         so ``flushes × occupancy == requests`` stays exact."""
         if not self.backend.host_parallel:
             return self.sweep(prefix_handle, ext_handles, desc=desc), None
-        req = self._make_requests([(prefix_handle, ext_handles)], None)[0]
-        req.desc = desc
+        req = self._make_requests([(prefix_handle, ext_handles)], None,
+                                  desc=desc)[0]
         with self._cv:
             if self._stop:
                 raise RuntimeError("dispatcher is stopped")
@@ -772,18 +814,15 @@ class SweepDispatcher:
              "queue_requests": self.queue_requests,
              "sweep_s": self.sweep_s})
 
-    def _flush_args(self, batch: Sequence[SweepRequest],
+    def _flush_args(self, batch: Sequence[SweepRequest], flush: int,
                     inline: bool = False) -> Dict[str, float]:
-        """Span payload for one flush: occupancy, an upper-bound byte
-        figure (rows × full arena width — segment-restricted sweeps read
-        less), the dense/sparse split and the query count. Only runs
+        """Span payload for one flush: its id, the requests and rows it
+        carried, the dense/sparse split and the query count. Only runs
         when a tracer is attached."""
-        arena = self.arena
         rows = sum(len(r.prefix_handles) + len(r.ext_handles)
                    for r in batch)
-        sparse = sum(1 for r in batch if r.is_sparse(arena))
-        return {"requests": len(batch), "occupancy": len(batch),
-                "rows": rows, "batch_bytes": rows * arena.n_words * 4,
+        sparse = sum(1 for r in batch if r.is_sparse(self.arena))
+        return {"flush": flush, "requests": len(batch), "rows": rows,
                 "sparse": sparse, "dense": len(batch) - sparse,
                 "queries": sum(1 for r in batch if r.priority),
                 "inline": inline}
@@ -823,6 +862,10 @@ class SweepDispatcher:
                 self.queue_requests += len(batch)
             try:
                 t0 = time.perf_counter()
+                if tr is not None:
+                    fid = tr.serial()
+                    for r in batch:      # read by the waiting callers
+                        r.flush, r.flush_t0 = fid, t0
                 results = self.backend.sweep_many(self.arena, batch)
                 t1 = time.perf_counter()
                 with self._cv:
@@ -835,7 +878,7 @@ class SweepDispatcher:
                                 args={"requests": len(batch)})
                 if tr is not None:
                     tr.span("flush", t0, cat="flush",
-                            args=self._flush_args(batch))
+                            args=self._flush_args(batch, fid))
             except BaseException as e:  # noqa: BLE001 - resolve futures:
                 for r in batch:         # a swallowed error would deadlock
                     r.future.set_exception(e)   # every blocked worker

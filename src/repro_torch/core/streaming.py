@@ -63,8 +63,9 @@ import torch
 
 from repro_torch.core import cluster as _cluster
 from repro_torch.core import tidlist
-from repro_torch.core.fpm import (DeltaPlan, EngineRuntime, MiningMetrics,
-                                  MiningRun, _resolve_mesh, mine_more)
+from repro_torch.core.fpm import (HOST_CAT, DeltaPlan, EngineRuntime,
+                                  MiningMetrics, MiningRun, _resolve_mesh,
+                                  mine_more)
 from repro_torch.core.itemsets import Itemset
 from repro_torch.core.join_backend import FLUSH_US, MAX_BATCH
 from repro_torch.core.scheduler import ClusteredPolicy
@@ -72,6 +73,7 @@ from repro_torch.core.tidlist import (BitmapArena, pack_database,
                                       resolve_device)
 from repro_torch.obs import LatencyRecorder, MetricsRegistry
 from repro_torch.obs import schema as obs_schema
+from repro_torch.obs.tracer import with_gc_spans
 
 # ---------------------------------------------------------------------------
 # device-resident top-k
@@ -489,6 +491,18 @@ def _check_items(db, n_items: int) -> None:
 # the streaming miner
 # ---------------------------------------------------------------------------
 
+def _drop_unswept(plan: DeltaPlan, tr) -> None:
+    """``plan.drop_unswept()``, traced as a ``drop-unswept`` span on the
+    refreshing thread's lane."""
+    if tr is None:
+        plan.drop_unswept()
+        return
+    t0, n0 = tr.now(), len(plan.known)
+    plan.drop_unswept()
+    tr.span("drop-unswept", t0, cat=HOST_CAT,
+            args={"known": n0, "dropped": n0 - len(plan.known)})
+
+
 class StreamingMiner:
     """Owns one growing, segmented :class:`BitmapArena` and publishes
     mining generations over it.
@@ -750,6 +764,9 @@ class StreamingMiner:
         are stale until the next :meth:`refresh`. Never blocks behind an
         in-flight refresh: the new segment lands in the NEXT
         generation."""
+        return with_gc_spans(self.tracer, self._ingest, batch)
+
+    def _ingest(self, batch: Sequence[Sequence[int]]) -> IngestReport:
         batch = [list(t) for t in batch]
         _check_items(batch, self.n_items)
         t0 = time.perf_counter()
@@ -798,6 +815,10 @@ class StreamingMiner:
         captured up front under the state lock; every sweep names its
         segments, so batches an overlapped :meth:`ingest` appends
         mid-refresh are invisible to this generation."""
+        return with_gc_spans(self.tracer, self._refresh, before_publish)
+
+    def _refresh(self, before_publish) -> RefreshReport:
+        tr = self.tracer
         with self._refresh_lock:
             t0 = time.perf_counter()
             arena = self.arena
@@ -811,6 +832,7 @@ class StreamingMiner:
                 known = dict(self._known)
                 qk = set(self._query_known)
             base_segments = tuple(range(boundary))
+            t_dirty = tr.now() if tr is not None else 0.0
             deltas = np.zeros(self.n_items, np.int64)
             for g in pending:
                 # with hosts a pending segment lives whole on its owner;
@@ -820,6 +842,9 @@ class StreamingMiner:
                     if seg.shape[1]:
                         deltas += tidlist.popcount32(seg).sum(axis=1)
             dirty = frozenset(int(i) for i in np.nonzero(deltas)[0])
+            if tr is not None:
+                tr.span("dirty-items", t_dirty, cat=HOST_CAT,
+                        args={"segments": len(pending), "dirty": len(dirty)})
             # query backfills live outside the candidate frontier, so the
             # delta plan is not guaranteed to revisit them — drop the
             # ones whose support may have changed rather than let them
@@ -866,12 +891,13 @@ class StreamingMiner:
                 metrics.h2d_bytes = arena.h2d_bytes - h2d0
                 metrics.d2d_bytes = arena.d2d_bytes - d2d0
             if isinstance(self._ms_spec, float):
-                plan.drop_unswept()
+                _drop_unswept(plan, tr)
 
             # exact assembly from the reuse store: skipped (clean)
             # subtrees never touched `result`, but their supports are in
             # the known store, and downward closure makes the filter
             # exact. The sub-threshold remainder IS the negative border.
+            t_asm = tr.now() if tr is not None else 0.0
             final = dict(singles)
             border: Dict[Itemset, int] = {}
             for x, s in known.items():
@@ -890,6 +916,10 @@ class StreamingMiner:
             snapshot = PatternSnapshot(self.generation + 1, boundary_tx, ms,
                                        final, border=border,
                                        device=self.device)
+            if tr is not None:
+                tr.span("assemble", t_asm, cat=HOST_CAT,
+                        args={"frequent": len(final),
+                              "border": len(border)})
             report = RefreshReport(
                 generation=snapshot.generation, n_transactions=boundary_tx,
                 min_support=ms, frequent=len(final),
@@ -904,7 +934,6 @@ class StreamingMiner:
             # itself ingest, so it runs OUTSIDE the state lock
             if before_publish is not None:
                 before_publish(snapshot)
-            tr = self.tracer
             t_pub = tr.now() if tr is not None else 0.0
             with self._state:
                 # commit point: plain assignments, then the swap
@@ -1184,6 +1213,9 @@ class Tenant:
         """Append a batch as one fresh segment TAGGED with this tenant's
         id: other tenants never sweep it, and arena compaction refuses to
         fold across the tag."""
+        return with_gc_spans(self.hub.tracer, self._ingest, batch)
+
+    def _ingest(self, batch: Sequence[Sequence[int]]) -> IngestReport:
         batch = [list(t) for t in batch]
         _check_items(batch, self.n_items)
         t0 = time.perf_counter()
@@ -1208,6 +1240,10 @@ class Tenant:
         segments (a non-contiguous subset of the shared arena), and every
         spawned task carries the tenant tag, so the weighted-fair drain
         rule arbitrates between concurrently refreshing tenants."""
+        return with_gc_spans(self.hub.tracer, self._refresh, before_publish)
+
+    def _refresh(self, before_publish) -> RefreshReport:
+        tr = self.hub.tracer
         with self._refresh_lock:
             t0 = time.perf_counter()
             hub, arena = self.hub, self.arena
@@ -1218,11 +1254,15 @@ class Tenant:
                 boundary_tx = sum(self._seg_tx[g] for g in base_segments)
                 known = dict(self._known)
                 qk = set(self._query_known)
+            t_dirty = tr.now() if tr is not None else 0.0
             deltas = np.zeros(self.n_items, np.int64)
             for g in pending:
                 seg = arena.seg_view(g)[:self.n_items]
                 deltas += tidlist.popcount32(seg).sum(axis=1)
             dirty = frozenset(int(i) for i in np.nonzero(deltas)[0])
+            if tr is not None:
+                tr.span("dirty-items", t_dirty, cat=HOST_CAT,
+                        args={"segments": len(pending), "dirty": len(dirty)})
             for x in [x for x in qk if x and all(i in dirty for i in x)]:
                 known.pop(x, None)
                 qk.discard(x)
@@ -1255,7 +1295,8 @@ class Tenant:
             metrics.h2d_bytes = arena.h2d_bytes - h2d0
             metrics.d2d_bytes = arena.d2d_bytes - d2d0
             if isinstance(self._ms_spec, float):
-                plan.drop_unswept()
+                _drop_unswept(plan, tr)
+            t_asm = tr.now() if tr is not None else 0.0
             final = dict(singles)
             border: Dict[Itemset, int] = {}
             for x, s in known.items():
@@ -1268,6 +1309,10 @@ class Tenant:
             snapshot = PatternSnapshot(self.generation + 1, boundary_tx, ms,
                                        final, border=border,
                                        device=self.device)
+            if tr is not None:
+                tr.span("assemble", t_asm, cat=HOST_CAT,
+                        args={"frequent": len(final),
+                              "border": len(border)})
             report = RefreshReport(
                 generation=snapshot.generation, n_transactions=boundary_tx,
                 min_support=ms, frequent=len(final),
@@ -1333,7 +1378,9 @@ class TenantHub:
     through :meth:`tenant_stats`.
 
     ``mesh`` shards the hub's arena as ``fpm.mine(mesh=)`` does; every
-    tenant's queries then go to the shards' dispatchers in turn."""
+    tenant's queries then go to the shards' dispatchers in turn.
+    ``tracer`` records the shared runtime and every tenant's ingests and
+    refreshes, as :class:`StreamingMiner`'s does."""
 
     def __init__(self, n_items: int, *,
                  device: "torch.device | str | None" = None,
@@ -1342,12 +1389,13 @@ class TenantHub:
                  backend: str = "auto", arena: str = "auto",
                  cache_size: int = 32, max_batch: int = MAX_BATCH,
                  flush_us: float = FLUSH_US, mesh=None,
-                 representation: str = "auto"):
+                 representation: str = "auto", tracer=None):
         if n_items < 1:
             raise ValueError(f"n_items must be >= 1, got {n_items}")
         self.device = resolve_device(device)
         self.n_items = n_items
         self.max_k = max_k
+        self.tracer = tracer
         self._run_kw = dict(policy=policy, n_workers=n_workers,
                             granularity=granularity, backend=backend,
                             cache_size=cache_size, max_batch=max_batch,
@@ -1373,7 +1421,8 @@ class TenantHub:
                     self.arena, policy=kw["policy"],
                     n_workers=kw["n_workers"],
                     granularity=kw["granularity"], backend=kw["backend"],
-                    max_batch=kw["max_batch"], flush_us=kw["flush_us"])
+                    max_batch=kw["max_batch"], flush_us=kw["flush_us"],
+                    tracer=self.tracer)
                 self._push_weights()
             return self._runtime
 

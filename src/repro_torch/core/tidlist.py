@@ -305,8 +305,9 @@ class BitmapArena:
     ``tracer`` is None (tracing off) unless an engine attaches one; a
     mirror sync that moves payload then records an ``h2d-sync`` span,
     :meth:`count_h2d` an ``h2d`` instant, :meth:`compact` a
-    ``compaction`` span, :meth:`migrate` a ``d2d-migrate`` span and
-    :meth:`note_access` a ``d2d`` instant, on the calling lane.
+    ``compaction`` span and :meth:`migrate` a ``d2d-migrate`` span, on
+    the calling lane; the kernel backend reads it to record its
+    ``launch`` spans.
 
     Sharded mode (``n_shards`` > 1, optionally with a ``devices`` list,
     one per shard): one set of per-segment mirrors per shard, on
@@ -1097,17 +1098,11 @@ class BitmapArena:
         bookkeeping, and the mirror writes, in :meth:`device_rows`."""
         if self.n_shards == 1:
             return
-        tr = self.tracer
-        d2d0 = self.d2d_bytes
         with self._lock:
             self._note_sparse(shard, handles)
             for g in (segments if segments is not None
                       else range(len(self._seg_words))):
                 self._sync_plan(shard, g, handles)
-        if tr is not None and self.d2d_bytes != d2d0:
-            tr.instant("d2d", cat="arena",
-                       args={"shard": shard,
-                             "bytes": self.d2d_bytes - d2d0})
 
     def _note_sparse(self, shard: int, handles: Sequence[int]) -> None:
         """A foreign tid/diffset payload read by ``shard`` is billed to

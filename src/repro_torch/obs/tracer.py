@@ -26,14 +26,23 @@ Lanes map onto Chrome trace (pid, tid): ``pid`` is the host rank and
 ``tid`` is a per-ring serial; ``set_lane`` names the calling thread's
 lane ("worker-3", "dispatcher-0", "driver", ...) and pins its sort
 position.
+
+Garbage collections get a lane of their own, ``gc``: between
+``hook_gc`` and ``unhook_gc`` the tracer holds one ``gc.callbacks``
+entry that records a ``gc`` span per collection, whichever thread
+triggered it. Collections never overlap (the interpreter runs one at a
+time), so the lane's ring still has one writer at a time. The engines
+hook it only for the length of a traced call.
 """
 from __future__ import annotations
 
+import gc
+import itertools
 import threading
 import time
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
-__all__ = ["Tracer", "TraceEvent"]
+__all__ = ["Tracer", "TraceEvent", "with_gc_spans"]
 
 
 class TraceEvent(NamedTuple):
@@ -56,14 +65,19 @@ class TraceEvent(NamedTuple):
 
 
 class _Ring:
-    """Single-writer circular event buffer (one owner thread)."""
+    """Single-writer circular event buffer (one owner thread).
+
+    The buffer grows by appends until it holds ``cap`` events and wraps
+    from then on, so a lane holds only the events it took: a large
+    ``cap`` costs no memory up front, and the garbage collector, which
+    walks every list it tracks, never walks empty slots."""
 
     __slots__ = ("cap", "buf", "idx", "n", "tid", "name", "pid", "sort")
 
     def __init__(self, cap: int, tid: int, name: str, pid: int = 0,
                  sort: Optional[int] = None):
         self.cap = cap
-        self.buf: List[Optional[tuple]] = [None] * cap
+        self.buf: List[tuple] = []
         self.idx = 0        # next write slot
         self.n = 0          # total events ever appended
         self.tid = tid
@@ -73,7 +87,10 @@ class _Ring:
 
     def append(self, ev: tuple) -> None:
         i = self.idx
-        self.buf[i] = ev
+        if self.n < self.cap:
+            self.buf.append(ev)
+        else:
+            self.buf[i] = ev
         self.idx = 0 if i + 1 == self.cap else i + 1
         self.n += 1
 
@@ -90,9 +107,38 @@ class _Ring:
         returns whole. (The reference tracer tests ``n <= cap`` here and
         so returns nothing for an exactly-full ring.)"""
         if self.n < self.cap:
-            return [e for e in self.buf[: self.idx] if e is not None]
+            return self.buf[: self.idx]
         i = self.idx
-        return [e for e in self.buf[i:] + self.buf[:i] if e is not None]
+        return self.buf[i:] + self.buf[:i]
+
+
+# the gc lane sorts after every worker and dispatcher lane
+GC_LANE_SORT = 1 << 20
+
+
+class _GcHook:
+    """The ``gc.callbacks`` entry: a span per collection on the gc lane,
+    stamped with the tracer's clock, with the generation, the objects
+    collected and the name of the thread whose allocation (or
+    ``gc.collect``) triggered it."""
+
+    __slots__ = ("ring", "tracer", "t0")
+
+    def __init__(self, ring: _Ring, tracer: "Tracer"):
+        self.ring = ring
+        self.tracer = tracer
+        self.t0 = 0.0
+
+    def __call__(self, phase: str, info: Dict[str, int]) -> None:
+        if phase == "start":
+            self.t0 = self.tracer.now()
+            return
+        t1 = self.tracer.now()
+        self.ring.append(("X", "gc", "gc", self.t0 - self.tracer._epoch,
+                          t1 - self.t0,
+                          {"generation": info["generation"],
+                           "collected": info["collected"],
+                           "thread": threading.current_thread().name}))
 
 
 class Tracer:
@@ -115,19 +161,28 @@ class Tracer:
         self._lock = threading.Lock()
         self._rings: List[_Ring] = []
         self._next_tid = 1
+        self._gc_lock = threading.Lock()
+        self._gc_users = 0
+        self._gc_hook: Optional[_GcHook] = None
+        self._gc_ring: Optional[_Ring] = None
+        self._serials = itertools.count(1)
 
     # ---- record path -------------------------------------------------
 
     def now(self) -> float:
         return time.perf_counter()
 
-    def _new_ring(self, name: str, pid: int = 0,
+    def _add_ring(self, name: str, pid: int = 0,
                   sort: Optional[int] = None) -> _Ring:
         with self._lock:
             r = _Ring(self.ring_size, self._next_tid, name, pid, sort)
             self._next_tid += 1
             self._rings.append(r)
-        self._tls.ring = r
+        return r
+
+    def _new_ring(self, name: str, pid: int = 0,
+                  sort: Optional[int] = None) -> _Ring:
+        r = self._tls.ring = self._add_ring(name, pid, sort)
         return r
 
     def _ring(self) -> _Ring:
@@ -163,6 +218,36 @@ class Tracer:
         ts = time.perf_counter() - self._epoch
         self._ring().append(("C", name, "counter", ts, 0.0, dict(values)))
 
+    def serial(self) -> int:
+        """The next of this tracer's serial ids (1, 2, ...), from any
+        thread: an identifier that spans of several lanes share."""
+        return next(self._serials)
+
+    def hook_gc(self) -> None:
+        """Record every garbage collection as a ``gc`` span on lane
+        ``gc`` until the matching :meth:`unhook_gc`. Calls nest and may
+        overlap across threads: the first installs the one
+        ``gc.callbacks`` entry, the last removes it, after which
+        neither the interpreter nor the entry refers to this tracer."""
+        with self._gc_lock:
+            self._gc_users += 1
+            if self._gc_users > 1:
+                return
+            if self._gc_ring is None:
+                # made here, never inside the callback: a collection can
+                # start while this thread holds ``_lock``
+                self._gc_ring = self._add_ring("gc", sort=GC_LANE_SORT)
+            self._gc_hook = _GcHook(self._gc_ring, self)
+            gc.callbacks.append(self._gc_hook)
+
+    def unhook_gc(self) -> None:
+        with self._gc_lock:
+            self._gc_users -= 1
+            if self._gc_users > 0:
+                return
+            hook, self._gc_hook = self._gc_hook, None
+            gc.callbacks.remove(hook)
+
     # ---- collection --------------------------------------------------
 
     def rings(self) -> List[_Ring]:
@@ -190,3 +275,16 @@ class Tracer:
 
     def lane_names(self) -> List[str]:
         return [r.name for r in self.rings()]
+
+
+def with_gc_spans(tracer: Optional[Tracer], fn, /, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with ``tracer`` recording the garbage
+    collections that run meanwhile (:meth:`Tracer.hook_gc`); with no
+    tracer, a plain call."""
+    if tracer is None:
+        return fn(*args, **kwargs)
+    tracer.hook_gc()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        tracer.unhook_gc()

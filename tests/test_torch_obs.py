@@ -3,6 +3,7 @@
 event lists through both packages give the same exports, the one known
 divergence (an exactly-full ring) is pinned, and a traced CPU mine has
 well-formed, complete timelines on both backends."""
+import gc
 import json
 import threading
 
@@ -14,6 +15,7 @@ from repro.core import fpm as rfpm
 from repro.obs import export as rexport
 from repro.obs import tracer as rtracer
 from repro_torch.core import fpm as tfpm
+from repro_torch.core import streaming as tstreaming
 from repro_torch.core.tidlist import pack_database
 from repro_torch.data.transactions import load
 from repro_torch.obs import (Tracer, check_nesting, chrome_trace,
@@ -347,8 +349,9 @@ def test_traced_flush_spans_describe_their_batch(small_db):
         d["sweep_requests"] for d in met.per_device)
     for e in flushes:
         a = e.args
-        assert a["sparse"] + a["dense"] == a["requests"] == a["occupancy"]
-        assert a["batch_bytes"] == a["rows"] * bm.shape[1] * 4
+        assert a["sparse"] + a["dense"] == a["requests"]
+    # one serial id per flush span
+    assert len({e.args["flush"] for e in flushes}) == len(flushes)
     syncs = [e for e in tr.events() if e.name == "h2d-sync"]
     assert syncs and all(e.cat == "arena" for e in syncs)
     # the load upload and every later sync bill what the spans carry
@@ -359,3 +362,196 @@ def test_traced_flush_spans_describe_their_batch(small_db):
     assert [e.name for e in levels] == [f"level-{k}"
                                         for k in range(2, 2 + met.levels)]
     assert {e.lane for e in levels} == {"driver"}
+
+
+# ------------------------------------------- host work that idles the card --
+def _traced_bucket_mine(small_db):
+    """A traced kernel-backend bucket mine with two levels, the second
+    over prefixes the workers build."""
+    db, p = small_db
+    bm, counts = pack_database(db, p.n_dense_items, return_counts=True)
+    tr = Tracer()
+    res, met = tfpm.mine(bm, int(0.2 * len(db)), device="cpu",
+                         backend="torch", n_workers=3, max_k=3,
+                         item_counts=counts, trace=tr)
+    return tr, res, met
+
+
+def _inside(child, parent):
+    return (parent.ts <= child.ts
+            and child.ts + child.dur <= parent.ts + parent.dur + 1e-9)
+
+
+def test_traced_mine_records_arena_build_items_and_level_planning(
+        small_db):
+    """The driver lane holds the arena build and level 1, and under every
+    ``level-k`` span exactly one ``candidates``, ``plan`` and
+    ``collect`` child, each in the host category (no time-in-state
+    state); nothing straddles."""
+    tr, _, met = _traced_bucket_mine(small_db)
+    driver = [e for e in tr.events() if e.lane == "driver" and e.ph == "X"]
+    names = [e.name for e in driver]
+    assert names.count("arena-build") == names.count("items") == 1
+    build = next(e for e in driver if e.name == "arena-build")
+    items = next(e for e in driver if e.name == "items")
+    levels = [e for e in driver if e.name.startswith("level-")]
+    assert len(levels) == met.levels >= 2
+    assert build.ts + build.dur <= items.ts <= levels[0].ts
+    for lv in levels:
+        kids = [e.name for e in driver if e is not lv and _inside(e, lv)]
+        assert sorted(kids) == ["candidates", "collect", "plan"], kids
+        plan = next(e for e in driver if e.name == "plan" and _inside(e, lv))
+        assert plan.args["candidates"] == lv.args["candidates"]
+        assert plan.args["buckets"] > 0
+    assert {e.cat for e in driver if not e.name.startswith("level-")} == {
+        tfpm.HOST_CAT}
+    assert tfpm.HOST_CAT not in texport.STATE_OF_CAT
+    assert check_nesting(tr.events()) == []
+
+
+def test_worker_sweeps_name_the_flush_that_answered(small_db):
+    tr, _, _ = _traced_bucket_mine(small_db)
+    evs = tr.events()
+    flushes = {e.args["flush"]: e for e in evs if e.name == "flush"}
+    sweeps = [e for e in evs
+              if e.name == "sweep" and e.lane.startswith("worker-")]
+    assert sweeps
+    for e in sweeps:
+        f = flushes[e.args["flush"]]
+        assert e.args["queued_s"] >= 0
+        # the flush starts after the request was made and ends before
+        # the caller wakes
+        assert e.ts <= f.ts and f.ts + f.dur <= e.ts + e.dur + 1e-9
+    launches = [e for e in evs if e.name == "launch"]
+    assert launches and {e.lane for e in launches} == {"dispatcher-0"}
+    assert all(any(_inside(x, f) for f in flushes.values())
+               for x in launches)
+    assert {e.args["kernel"] for e in launches} <= {
+        "bitmap_join_many", "gather_intersect_many"}
+
+
+def test_worker_sweep_state_is_the_sum_of_sweep_spans(small_db):
+    """Prefix builds are worker-lane spans of their own, billed to no
+    sweep state: the workers' blocked time stays their sweep spans."""
+    tr, _, met = _traced_bucket_mine(small_db)
+    evs = tr.events()
+    prefixes = [e for e in evs if e.name == "prefix"]
+    assert prefixes and met.cache_misses >= len(prefixes)
+    assert all(e.lane.startswith("worker-") for e in prefixes)
+    assert all(e.args["rows_read"] >= 1 and e.args["rep"] in (
+        "bitmap", "tidlist") for e in prefixes)
+    for row in time_in_state(tr).values():
+        if not row["lane"].startswith("worker-"):
+            continue
+        spans = sum(e.dur for e in evs if e.lane == row["lane"]
+                    and e.ph == "X" and e.cat == "sweep")
+        assert row["sweep"] == pytest.approx(spans, abs=1e-9)
+
+
+def test_forced_collection_lands_on_the_gc_lane(small_db, monkeypatch):
+    before = list(gc.callbacks)
+    inside = []
+    gen = tfpm.gen_candidates
+
+    def collecting(*args, **kw):
+        inside.append(len(gc.callbacks))
+        gc.collect()
+        return gen(*args, **kw)
+
+    monkeypatch.setattr(tfpm, "gen_candidates", collecting)
+    tr, _, _ = _traced_bucket_mine(small_db)
+    assert gc.callbacks == before
+    assert inside and set(inside) == {len(before) + 1}
+    spans = [e for e in tr.events() if e.name == "gc"]
+    assert {e.lane for e in spans} == {"gc"} and {e.cat for e in spans} == {
+        "gc"}
+    full = [e for e in spans if e.args["generation"] == 2]
+    assert full and all(e.args["collected"] >= 0 for e in full)
+    assert threading.current_thread().name in {e.args["thread"]
+                                              for e in full}
+    assert check_nesting(tr.events()) == []
+
+
+def test_untraced_mine_installs_no_gc_callback(small_db, monkeypatch):
+    before = list(gc.callbacks)
+    inside = []
+    gen = tfpm.gen_candidates
+
+    def counting(*args, **kw):
+        inside.append(list(gc.callbacks))
+        return gen(*args, **kw)
+
+    monkeypatch.setattr(tfpm, "gen_candidates", counting)
+    db, p = small_db
+    bm, counts = pack_database(db, p.n_dense_items, return_counts=True)
+    tfpm.mine(bm, int(0.3 * len(db)), device="cpu", backend="torch",
+              n_workers=3, max_k=3, item_counts=counts)
+    assert inside and all(cb == before for cb in inside)
+    assert gc.callbacks == before
+
+
+def test_gc_hook_nests_and_leaves_no_reference():
+    import weakref
+    before = list(gc.callbacks)
+    tr = Tracer()
+    tr.hook_gc()
+    tr.hook_gc()
+    assert len(gc.callbacks) == len(before) + 1
+    tr.unhook_gc()
+    gc.collect()
+    assert len(gc.callbacks) == len(before) + 1
+    tr.unhook_gc()
+    assert gc.callbacks == before
+    assert [e.lane for e in tr.events()] == ["gc"]
+    ref = weakref.ref(tr)
+    del tr
+    assert ref() is None
+
+
+def _stream_rows(n, items=16, seed=7):
+    rng = np.random.default_rng(seed)
+    return [sorted(rng.choice(items, size=rng.integers(2, 7),
+                              replace=False).tolist()) for _ in range(n)]
+
+
+@pytest.mark.parametrize("host", ["miner", "tenant"])
+def test_traced_refresh_records_its_delta_bookkeeping(host):
+    """Both refresh methods record the dirty-item popcount, the
+    ``drop_unswept`` pass (a fraction threshold) and the assembly on the
+    refreshing lane, the delta chunks' blocked time as worker ``sweep``
+    spans, and the ingests' and refreshes' collections only while they
+    run."""
+    rows = _stream_rows(400)
+    tr = Tracer()
+    before = list(gc.callbacks)
+    kw = dict(device="cpu", backend="torch", n_workers=3, max_k=4,
+              tracer=tr)
+    if host == "miner":
+        owner = stream = tstreaming.StreamingMiner(
+            16, 0.1, initial_db=rows[:300], **kw)
+    else:
+        owner = tstreaming.TenantHub(16, **kw)
+        stream = owner.tenant("t", 0.1)
+        stream.ingest(rows[:300])
+    try:
+        stream.refresh()
+        stream.ingest(rows[300:])
+        rep = stream.refresh()
+    finally:
+        owner.close()
+    assert gc.callbacks == before
+    assert rep.swept_delta > 0
+    evs = tr.events()
+    refreshing = {e.lane for e in evs if e.name == "dirty-items"}
+    assert refreshing == {"driver"}
+    names = [e.name for e in evs if e.lane == "driver"]
+    assert names.count("dirty-items") == names.count("assemble") == 2
+    assert names.count("drop-unswept") == 2
+    drops = [e for e in evs if e.name == "drop-unswept"]
+    assert all(e.args["known"] >= e.args["dropped"] >= 0 for e in drops)
+    sweeps = [e for e in evs if e.name == "sweep"
+              and e.lane.startswith("worker-") and "requests" in e.args]
+    assert sweeps and all(e.args["queued_s"] >= 0 for e in sweeps)
+    flush_ids = {e.args["flush"] for e in evs if e.name == "flush"}
+    assert {e.args["flush"] for e in sweeps} <= flush_ids
+    assert check_nesting(evs) == []
