@@ -18,9 +18,9 @@ read against (and pinned by tests), not called on the hot path.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
-from repro_torch.core.itemsets import Itemset, prefix_hash
+from repro_torch.core.itemsets import Itemset, itemset_hash, prefix_hash
 
 BYTES_PER_WORD = 4                    # uint32 TID-bitmap words
 
@@ -53,6 +53,45 @@ def group_by_prefix(cands: Sequence[Itemset]) -> List[Bucket]:
         groups.setdefault((prefix_hash(c), c[:-1]), []).append(c[-1])
     return [Bucket(h, pref, tuple(sorted(ext)))
             for (h, pref), ext in groups.items()]
+
+
+def gen_buckets(frequent: Sequence[Itemset],
+                known_frequent: Iterable[Itemset] = ()) -> List[Bucket]:
+    """``group_by_prefix(gen_candidates(frequent, known_frequent))``
+    without the flat candidate list: the same buckets, keys and order.
+
+    F_{k-1} (distinct itemsets of one size) is grouped by its
+    (k-2)-prefix P; each item ``a`` of a group, in sorted order, heads
+    the bucket ``P + (a,)`` whose extensions are the group's later items
+    that pass the Apriori prune. Joining two members of a group makes
+    the two subsets that drop ``a`` or the extension members of F_{k-1},
+    so only the k-2 subsets that drop an item of P are probed. At k=2
+    there is no prune and the extensions are a slice of the sorted
+    items: no tuple is built per candidate. A head whose extensions are
+    all pruned gets no bucket."""
+    if not frequent:
+        return []
+    k = len(frequent[0]) + 1
+    fset = None
+    if k > 2:
+        fset = set(frequent)
+        fset.update(known_frequent)
+    by_prefix: Dict[Itemset, List[int]] = {}
+    for it in frequent:
+        by_prefix.setdefault(it[:-1], []).append(it[-1])
+    out: List[Bucket] = []
+    for pref, lasts in by_prefix.items():
+        lasts.sort()
+        for i, a in enumerate(lasts):
+            exts = lasts[i + 1:]
+            if fset is not None:
+                subs = [pref[:j] + pref[j + 1:] + (a,) for j in range(k - 2)]
+                exts = [b for b in exts
+                        if all(s + (b,) in fset for s in subs)]
+            if exts:
+                head = pref + (a,)
+                out.append(Bucket(itemset_hash(head), head, tuple(exts)))
+    return out
 
 
 def bucket_rows_touched(prefix_len: int, n_exts: int) -> int:

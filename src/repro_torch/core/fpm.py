@@ -60,10 +60,9 @@ import torch
 
 from repro_torch.core import tidlist
 from repro_torch.core.buckets import (REPRESENTATIONS, Bucket, DensityModel,
-                                      class_rows_touched, group_by_prefix,
+                                      class_rows_touched, gen_buckets,
                                       rows_to_bytes)
-from repro_torch.core.itemsets import (Itemset, gen_candidates,
-                                       itemset_hash, prefix_hash)
+from repro_torch.core.itemsets import Itemset, gen_candidates, itemset_hash
 from repro_torch.core.join_backend import (FLUSH_US, MAX_BATCH,
                                            SweepDispatcher, resolve_backend)
 from repro_torch.core.scheduler import TaskScheduler, make_policy
@@ -349,33 +348,36 @@ class DeltaPlan:
 
     def classify_buckets(self, plan: List[Bucket]
                          ) -> Tuple[List[Tuple[Itemset, int]],
-                                    List[Bucket], List[Itemset]]:
+                                    List[Bucket], List[Bucket]]:
         """Split a level's prefix buckets into (clean ``(c, support)``
-        pairs, dirty sub-buckets, fresh candidates) in one pass over the
-        grouped plan. The prefix's dirtiness is probed ONCE per bucket,
-        and dirty extensions stay bucketed so the delta path never
+        pairs, dirty sub-buckets, fresh sub-buckets) in one pass over
+        the plan. The prefix's dirtiness is probed ONCE per bucket, and
+        dirty and fresh extensions stay bucketed so neither sweep path
         re-groups them."""
-        known, ditems = self.known, self.dirty_items
+        known, ditems, swept = self.known, self.dirty_items, self.swept
         clean: List[Tuple[Itemset, int]] = []
         dirty: List[Bucket] = []
-        fresh: List[Itemset] = []
+        fresh: List[Bucket] = []
         for b in plan:
             p = b.prefix
             p_dirty = all(i in ditems for i in p)
             d_exts: List[int] = []
+            f_exts: List[int] = []
             for e in b.exts:
                 c = p + (e,)
                 ks = known.get(c)
                 if ks is None:
-                    fresh.append(c)
+                    f_exts.append(e)
+                    swept.add(c)
                 elif p_dirty and e in ditems:
                     d_exts.append(e)
-                    self.swept.add(c)
+                    swept.add(c)
                 else:
                     clean.append((c, ks))
             if d_exts:
                 dirty.append(Bucket(b.key, p, tuple(d_exts)))
-        self.swept.update(fresh)
+            if f_exts:
+                fresh.append(Bucket(b.key, p, tuple(f_exts)))
         return clean, dirty, fresh
 
     def drop_unswept(self) -> None:
@@ -440,11 +442,15 @@ class EngineRuntime:
             device_of=self.device_of,
             migrate_cb=lambda hs, src, dst: store.migrate(hs, dst),
             tracer=tracer, trace_pid=self.trace_pid)
-        # pull-based snapshot API: live gauges, readable any time
+        # pull-based snapshot API: live gauges, readable any time. No
+        # gauge refers back to the runtime: a reference cycle would keep
+        # a finished run's arena, and its device mirror, alive until the
+        # next full collection
         self.registry = MetricsRegistry()
         self.registry.register("scheduler", self.sched.merged_stats)
+        dispatchers = self.dispatchers
         self.registry.register(
-            "per_device", lambda: [d.stats() for d in self.dispatchers])
+            "per_device", lambda: [d.stats() for d in dispatchers])
         self.registry.register(
             "arena", lambda: {"h2d_bytes": store.h2d_bytes,
                               "d2d_bytes": store.d2d_bytes,
@@ -751,7 +757,7 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
     (or thin enough that level barriers dominate), the whole bucket
     detaches into a depth-first class task — the subtree mines
     barrier-free and its itemsets never re-enter the level frontier
-    (``gen_candidates`` gets the full known-frequent set, so the
+    (``gen_buckets`` gets the full known-frequent set, so the
     cross-prefix prune stays exact). Under a delta plan auto stays
     level-synchronous: the clean/dirty/fresh split already skips clean
     work, and diffset handoffs are disabled mid-refresh anyway.
@@ -759,7 +765,13 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
     Under a ``cluster`` every host plans the same global frontier, sweeps
     only the prefixes it owns and merges the level's counted pairs in an
     exchange, so every host thresholds identically; a delta plan's
-    known-store update runs once per store inside that exchange."""
+    known-store update runs once per store inside that exchange.
+
+    The level stays bucket-shaped from planning to thresholding
+    (``gen_buckets``). Without a delta plan or a cluster the collectors
+    threshold as they collect, a bucket's counts at once, so an itemset
+    tuple is built only for a frequent candidate; the exchange and the
+    delta fold-in need every candidate's support, and keep every pair."""
     n_w = store.n_words
     # cached prefix rows must cover every segment the plan sweeps; max+1
     # because a tenant's segment set is a non-contiguous subset
@@ -891,18 +903,20 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
                 keep.append(b)
         return keep
 
-    def _spawn_sweeps(cands, segments):
-        """Spawn sweeps for ``cands`` (bucket- or candidate-grained) and
-        return a collector to call AFTER ``wait_all`` — fresh and dirty
-        sweep sets share one level barrier."""
+    def _spawn_sweeps(plan: List[Bucket], segments, floor: int = 0):
+        """Spawn sweeps for the ``plan``'s buckets (bucket- or candidate-
+        grained) and return ``(collect, counted)``: a collector to call
+        AFTER ``wait_all`` — fresh and dirty sweep sets share one level
+        barrier — and the number of candidates it counts. The collector
+        returns the ``(itemset, support)`` pairs with support at
+        ``floor`` or above (every pair at 0); at bucket grain it
+        thresholds a bucket's counts at once, so no tuple is built for a
+        candidate below the floor."""
         if cluster is not None:
             # every host plans the same global frontier but sweeps only
             # the prefixes it owns; the level exchange merges the pairs
-            cands = [c for c in cands if cluster.owns(c[:-1])]
-        if not cands:
-            return lambda: []
+            plan = [b for b in plan if cluster.owns(b.prefix)]
         if granularity in ("bucket", "auto"):
-            plan = group_by_prefix(cands)
             if df_miner is not None:
                 plan = _detach(plan)
             metrics.buckets += len(plan)
@@ -914,20 +928,30 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
 
             def collect():
                 _raise_task_errors(tasks)
-                return [(b.prefix + (e,), int(s))
-                        for b, t in zip(plan, tasks)
-                        for e, s in zip(b.exts, t.result)]
+                out = []
+                for b, t in zip(plan, tasks):
+                    counts = t.result
+                    hits = np.flatnonzero(counts >= floor)
+                    p, exts = b.prefix, b.exts
+                    out.extend((p + (exts[i],), s) for i, s in
+                               zip(hits.tolist(), counts[hits].tolist()))
+                return out
         else:
+            # candidate grain: the buckets flattened in order are the
+            # sequence ``gen_candidates`` gives
+            cands = [(b, b.prefix + (e,)) for b in plan for e in b.exts]
             tasks = [sched.spawn(count_task, c, segments,
-                                 attr=(prefix_hash(c), c),
-                                 priority=prio(c[:-1]) if prio else 0.0,
+                                 attr=(b.key, c),
+                                 priority=prio(b.prefix) if prio else 0.0,
                                  tenant=tenant)
-                     for c in cands]
+                     for b, c in cands]
 
             def collect():
                 _raise_task_errors(tasks)
-                return [(c, int(t.result)) for c, t in zip(cands, tasks)]
-        return collect
+                return [(c, int(t.result))
+                        for (_, c), t in zip(cands, tasks)
+                        if t.result >= floor]
+        return collect, sum(len(b.exts) for b in plan)
 
     def delta_chunk_task(chunk: List[Bucket]) -> List[Tuple[Itemset, int]]:
         """Coalesced dirty-candidate burst: each bucket in the chunk
@@ -979,26 +1003,30 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
         # Apriori prune needs the full known-frequent membership (the
         # result dict is complete here: the level barrier below also
         # waited on every detached class task)
-        cands = (gen_candidates(frequent, known_frequent=result)
-                 if df_miner is not None else gen_candidates(frequent))
+        plan = (gen_buckets(frequent, known_frequent=result)
+                if df_miner is not None else gen_buckets(frequent))
+        n_cands = sum(len(b.exts) for b in plan)
         if tr is not None:
             # driver-lane children of the level span: the host's serial
             # work before the first task and after the barrier
             tr.span("candidates", t_level, cat=HOST_CAT,
-                    args={"candidates": len(cands)})
+                    args={"candidates": n_cands})
             t_plan = tr.now()
             buckets0 = metrics.buckets
-        if not cands:
+        if not plan:
             break
         metrics.levels += 1
-        metrics.candidates += len(cands)
+        metrics.candidates += n_cands
         frequent = []
         level: List[Tuple[Itemset, int]] = []
+        # the collectors threshold the level themselves unless the
+        # cluster exchange or the delta fold-in needs every pair
+        floor = min_support if delta is None and cluster is None else 0
         if delta is None:
-            collect = _spawn_sweeps(cands, None)
+            collect, counted = _spawn_sweeps(plan, None, floor)
             if tr is not None:
                 tr.span("plan", t_plan, cat=HOST_CAT,
-                        args={"candidates": len(cands),
+                        args={"candidates": n_cands,
                               "buckets": metrics.buckets - buckets0})
             if cluster is None:
                 sched.wait_all()
@@ -1009,36 +1037,39 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
                 _raise_task_errors(detached_tasks)
                 df_miner.raise_errors()
             level = collect()
+            built = len(level)
             if cluster is not None:
                 level = cluster.exchange(level)
         else:
-            clean, dirty, fresh = delta.classify_buckets(
-                group_by_prefix(cands))
+            clean, dirty, fresh = delta.classify_buckets(plan)
             level.extend(clean)                 # clean: zero rows read
             n_dirty = sum(len(b.exts) for b in dirty)
+            n_fresh = sum(len(b.exts) for b in fresh)
             if cluster is None or cluster.host_id == 0:
                 # loopback hosts share the plan: bill its avoided-work
                 # counters once, not once per host
                 delta.reused += len(clean)
-                delta.swept_full += len(fresh)
+                delta.swept_full += n_fresh
                 delta.swept_delta += n_dirty
             if cluster is not None:
                 dirty = [b for b in dirty if cluster.owns(b.prefix)]
-            collect_fresh = _spawn_sweeps(fresh, delta.base_segments)
+            collect_fresh, _ = _spawn_sweeps(fresh, delta.base_segments)
             collect_dirty = _spawn_delta_chunks(dirty)
             if tr is not None:
                 tr.span("plan", t_plan, cat=HOST_CAT,
-                        args={"candidates": len(cands),
+                        args={"candidates": n_cands,
                               "buckets": metrics.buckets - buckets0,
                               "clean": len(clean), "dirty": n_dirty,
-                              "fresh": len(fresh)})
+                              "fresh": n_fresh})
             if cluster is None:
                 sched.wait_all()
                 t_collect = tr.now() if tr is not None else 0.0
-                for c, s in collect_fresh():
+                fresh_pairs, dirty_pairs = collect_fresh(), collect_dirty()
+                built = len(fresh_pairs) + len(dirty_pairs)
+                for c, s in fresh_pairs:
                     delta.known[c] = s
                     level.append((c, s))
-                for c, d in collect_dirty():
+                for c, d in dirty_pairs:
                     s = delta.known[c] + d      # delta over pending segs
                     delta.known[c] = s
                     level.append((c, s))
@@ -1047,6 +1078,7 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
                 t_collect = tr.now() if tr is not None else 0.0
                 mined = ([(c, s, True) for c, s in collect_fresh()]
                          + [(c, d, False) for c, d in collect_dirty()])
+                built = len(mined)
 
                 def _apply(merged):
                     # runs once per known store (host 0 under loopback,
@@ -1068,13 +1100,15 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
         frequent.sort()
         metrics.frequent += len(frequent)
         if tr is not None:
-            # in a cluster run this includes the level exchange
+            # in a cluster run this includes the level exchange;
+            # ``tuples``: the (itemset, support) pairs the collectors
+            # built (with a floor, the frequent ones only)
             tr.span("collect", t_collect, cat=HOST_CAT,
-                    args={"candidates": len(level),
-                          "frequent": len(frequent)})
+                    args={"candidates": counted if floor else len(level),
+                          "frequent": len(frequent), "tuples": built})
             # driver-lane level span: the barrier-to-barrier extent
             tr.span(f"level-{k}", t_level, cat="level",
-                    args={"candidates": len(cands),
+                    args={"candidates": n_cands,
                           "frequent": len(frequent)})
         k += 1
 
@@ -1490,8 +1524,12 @@ class _ClassMiner:
                 self.all_tasks.append(t)
 
     def raise_errors(self) -> None:
+        """Raise the first error of the class tasks spawned so far, and
+        let go of them: a task's body is a bound method of this miner,
+        so the kept list would hold the miner, and its arena, in a
+        reference cycle."""
         with self.lock:
-            tasks = list(self.all_tasks)
+            tasks, self.all_tasks = self.all_tasks, []
         _raise_task_errors(tasks)
 
 

@@ -75,6 +75,59 @@ def test_property_gen_candidates_and_buckets_identical(raw):
         [dataclasses.astuple(b) for b in rb.group_by_prefix(cands)]
 
 
+def _reference_buckets(frequent, known_frequent=()):
+    return [dataclasses.astuple(b) for b in rb.group_by_prefix(
+        ri.gen_candidates(frequent, known_frequent=known_frequent))]
+
+
+# frequent pairs whose prune drops (0, 1, 3), as (1, 3) is missing, and
+# every extension of the head (0, 2), as (2, 3) is, so (0, 2) gets no
+# bucket; (2, 3) as known-frequent gives it its bucket back
+_PRUNED = [(0, 1), (0, 2), (0, 3), (1, 2)]
+
+
+@pytest.mark.parametrize("case", [
+    ("random", 2, False), ("random", 2, True),
+    ("random", 3, False), ("random", 3, True),
+    ("random", 4, False), ("random", 4, True),
+    ("pruned", 3, False), ("pruned", 3, True),
+    ("empty", 2, False),
+])
+def test_gen_buckets_equals_grouped_candidates(case):
+    """The driver's bucket-direct generator is the reference's
+    ``group_by_prefix(gen_candidates(F))``: keys, prefixes and
+    extensions, in order, for candidates of size k."""
+    kind, k, known = case
+    if kind == "random":
+        rng = np.random.default_rng(k)
+        frequent = _random_frequent(rng, 14, k - 1, 60)
+        extra = _random_frequent(rng, 14, k - 1, 20) if known else ()
+    elif kind == "pruned":
+        frequent, extra = _PRUNED, [(2, 3)] if known else ()
+    else:
+        frequent, extra = [], ()
+    got = [dataclasses.astuple(b)
+           for b in tb.gen_buckets(frequent, known_frequent=extra)]
+    assert got == _reference_buckets(frequent, extra)
+    if kind == "pruned":
+        assert [b[1:] for b in got] == (
+            [((0, 1), (2,)), ((0, 2), (3,))] if known else [((0, 1), (2,))])
+
+
+@settings(max_examples=25, deadline=None, database=None)
+@given(st.lists(st.lists(st.integers(0, 11), min_size=3, max_size=3,
+                         unique=True), max_size=40),
+       st.lists(st.lists(st.integers(0, 11), min_size=3, max_size=3,
+                         unique=True), max_size=10))
+def test_property_gen_buckets_identical(raw, raw_known):
+    frequent = sorted({tuple(sorted(x)) for x in raw})
+    known = sorted({tuple(sorted(x)) for x in raw_known})
+    for extra in ((), known):
+        assert [dataclasses.astuple(b) for b in
+                tb.gen_buckets(frequent, known_frequent=extra)] == \
+            _reference_buckets(frequent, extra)
+
+
 def test_hashes_and_brute_force_identical():
     rng = np.random.default_rng(0)
     db = [sorted(rng.choice(10, size=rng.integers(1, 6),

@@ -228,6 +228,34 @@ def test_child_task_error_surfaces_and_releases_every_row(
     assert store.live_extra == 0 and store.peak_live_extra > 0
 
 
+@pytest.mark.parametrize("granularity", tfpm.GRANULARITIES)
+def test_finished_mine_frees_its_arena_without_the_cycle_collector(
+        granularity, monkeypatch):
+    """A returned mine leaves nothing in a reference cycle that holds its
+    arena: the arena, and with it the device mirror, goes by reference
+    counting, not at the next full collection."""
+    import gc
+    import weakref
+    arenas = []
+    build = BitmapArena.from_bitmaps.__func__
+
+    def tracked(cls, *a, **kw):
+        store = build(cls, *a, **kw)
+        arenas.append(weakref.ref(store))
+        return store
+
+    monkeypatch.setattr(BitmapArena, "from_bitmaps", classmethod(tracked))
+    bm, counts, ms = cut("retail", 400, 0.03)
+    gc.collect()
+    gc.disable()
+    try:
+        tfpm.mine(bm, ms, device="cpu", backend="torch", n_workers=3,
+                  max_k=3, item_counts=counts, granularity=granularity)
+        assert len(arenas) == 1 and arenas[0]() is None
+    finally:
+        gc.enable()
+
+
 def test_mine_serial_equals_reference():
     bm, _, ms = cut("chess", 600, 0.7)
     assert tfpm.mine_serial(bm, ms, max_k=4) == \

@@ -409,6 +409,25 @@ def test_traced_mine_records_arena_build_items_and_level_planning(
     assert check_nesting(tr.events()) == []
 
 
+def test_bucket_collect_builds_tuples_for_frequent_itemsets_only(
+        small_db):
+    """On the bucket path each level's counts are thresholded in bulk:
+    the ``collect`` span's ``tuples`` equals its ``frequent``, not its
+    ``candidates``, and the mine still equals ``mine_serial``."""
+    db, p = small_db
+    tr, res, met = _traced_bucket_mine(small_db)
+    collects = [e for e in tr.events()
+                if e.lane == "driver" and e.name == "collect"]
+    assert len(collects) == met.levels >= 2
+    for e in collects:
+        assert e.args["tuples"] == e.args["frequent"]
+    # the mechanism is visible: some level counted more than it kept
+    assert any(e.args["candidates"] > e.args["tuples"] for e in collects)
+    assert sum(e.args["candidates"] for e in collects) == met.candidates
+    bm = pack_database(db, p.n_dense_items)
+    assert res == tfpm.mine_serial(bm, int(0.2 * len(db)), max_k=3)
+
+
 def test_worker_sweeps_name_the_flush_that_answered(small_db):
     tr, _, _ = _traced_bucket_mine(small_db)
     evs = tr.events()
@@ -451,14 +470,14 @@ def test_worker_sweep_state_is_the_sum_of_sweep_spans(small_db):
 def test_forced_collection_lands_on_the_gc_lane(small_db, monkeypatch):
     before = list(gc.callbacks)
     inside = []
-    gen = tfpm.gen_candidates
+    gen = tfpm.gen_buckets
 
     def collecting(*args, **kw):
         inside.append(len(gc.callbacks))
         gc.collect()
         return gen(*args, **kw)
 
-    monkeypatch.setattr(tfpm, "gen_candidates", collecting)
+    monkeypatch.setattr(tfpm, "gen_buckets", collecting)
     tr, _, _ = _traced_bucket_mine(small_db)
     assert gc.callbacks == before
     assert inside and set(inside) == {len(before) + 1}
@@ -475,13 +494,13 @@ def test_forced_collection_lands_on_the_gc_lane(small_db, monkeypatch):
 def test_untraced_mine_installs_no_gc_callback(small_db, monkeypatch):
     before = list(gc.callbacks)
     inside = []
-    gen = tfpm.gen_candidates
+    gen = tfpm.gen_buckets
 
     def counting(*args, **kw):
         inside.append(list(gc.callbacks))
         return gen(*args, **kw)
 
-    monkeypatch.setattr(tfpm, "gen_candidates", counting)
+    monkeypatch.setattr(tfpm, "gen_buckets", counting)
     db, p = small_db
     bm, counts = pack_database(db, p.n_dense_items, return_counts=True)
     tfpm.mine(bm, int(0.3 * len(db)), device="cpu", backend="torch",
