@@ -50,10 +50,11 @@ bucket steal migrates the bucket's handoff rows. Cross-shard traffic is
 from __future__ import annotations
 
 import collections
+import itertools
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Set, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +66,8 @@ from repro_torch.core.buckets import (REPRESENTATIONS, Bucket, DensityModel,
 from repro_torch.core.itemsets import Itemset, gen_candidates, itemset_hash
 from repro_torch.core.join_backend import (FLUSH_US, MAX_BATCH,
                                            SweepDispatcher, resolve_backend)
+from repro_torch.core.known import (EXT_DTYPE, SUP_DTYPE, KnownStore,
+                                    bucket_keys, ext_array, find)
 from repro_torch.core.scheduler import TaskScheduler, make_policy
 from repro_torch.core.tidlist import BitmapArena, resolve_device
 from repro_torch.obs import MetricsRegistry
@@ -313,14 +316,16 @@ class DeltaPlan:
     """Incremental re-mine instructions that ``StreamingMiner.refresh``
     threads through the engines (None on a batch ``mine``).
 
-    ``known`` maps every candidate ever swept (frequent AND negative
-    border) to its exact support over the segments refreshed so far; the
-    engines update it in place (under ``lock`` on the depth-first path,
-    where class tasks merge concurrently). ``dirty_items`` are the items
-    occurring in the pending segments: a candidate's support may have
-    changed iff EVERY item of it is dirty. ``segments`` are the pending
-    segment ids a dirty candidate's delta sweep reads; ``base_segments``
-    are the segments a FULL (fresh-candidate) sweep reads — the refresh
+    ``known`` holds every candidate ever swept (frequent AND negative
+    border) with its exact support over the segments refreshed so far,
+    bucket by bucket (:class:`~repro_torch.core.known.KnownStore`; a
+    mapping given here is converted); the engines update it in place
+    (under ``lock`` on the depth-first path, where class tasks merge
+    concurrently). ``dirty_items`` are the items occurring in the
+    pending segments: a candidate's support may have changed iff EVERY
+    item of it is dirty. ``segments`` are the pending segment ids a
+    dirty candidate's delta sweep reads; ``base_segments`` are the
+    segments a FULL (fresh-candidate) sweep reads — the refresh
     generation boundary, so an ingest landing mid-refresh never leaks
     into this generation's supports. ``priority_of(prefix)`` (optional)
     is the staleness-hotness carried on spawned tasks, so the clustered
@@ -328,7 +333,7 @@ class DeltaPlan:
     entirely. ``tenant`` tags every spawned task for the scheduler's
     weighted-fair drain (None on single-tenant runs). Clean known
     candidates are never swept at all."""
-    known: Dict[Itemset, int]
+    known: KnownStore
     dirty_items: frozenset
     segments: Tuple[int, ...]
     base_segments: Tuple[int, ...]
@@ -339,46 +344,124 @@ class DeltaPlan:
     swept_full: int = 0
     swept_delta: int = 0
     reused: int = 0
-    # candidates the engines swept in this refresh (fresh or dirty)
-    swept: Set[Itemset] = field(default_factory=set)
+    # per prefix, the sorted extensions the engines swept in this
+    # refresh (fresh or dirty)
+    swept: Dict[Itemset, np.ndarray] = field(default_factory=dict)
+    # dirty_items as a mask over item ids; one slot past the largest
+    # dirty item stands for every larger (clean) one
+    _dirty: np.ndarray = field(init=False, repr=False)
+
+    def __post_init__(self):
+        if not isinstance(self.known, KnownStore):
+            self.known = KnownStore(self.known)
+        items = np.fromiter(self.dirty_items, np.int64)
+        self._dirty = np.zeros(int(items.max(initial=-1)) + 2, bool)
+        self._dirty[items] = True
 
     def is_dirty(self, c: Itemset) -> bool:
         d = self.dirty_items
         return all(i in d for i in c)
 
+    def dirty_of(self, items: np.ndarray) -> np.ndarray:
+        """Per item of ``items``: is it dirty."""
+        d = self._dirty
+        return d[np.minimum(items, len(d) - 1)]
+
     def classify_buckets(self, plan: List[Bucket]
-                         ) -> Tuple[List[Tuple[Itemset, int]],
-                                    List[Bucket], List[Bucket]]:
-        """Split a level's prefix buckets into (clean ``(c, support)``
-        pairs, dirty sub-buckets, fresh sub-buckets) in one pass over
-        the plan. The prefix's dirtiness is probed ONCE per bucket, and
-        dirty and fresh extensions stay bucketed so neither sweep path
-        re-groups them."""
-        known, ditems, swept = self.known, self.dirty_items, self.swept
-        clean: List[Tuple[Itemset, int]] = []
+                         ) -> Tuple["_Level", int, List[Bucket],
+                                    List[Bucket]]:
+        """Split a level's prefix buckets by masks, the whole level at
+        once: returns (the level aligned with ``known``, for
+        :meth:`fold` and :meth:`threshold`; the number of clean known
+        candidates; dirty sub-buckets; fresh sub-buckets). The buckets'
+        extensions are laid end to end and aligned with the stored ones
+        in one search, each prefix's dirtiness is probed ONCE, and dirty
+        and fresh extensions stay bucketed so neither sweep path
+        re-groups them. No itemset tuple is built."""
+        prefixes = [b.prefix for b in plan]
+        lens = np.fromiter((len(b.exts) for b in plan), np.int64, len(plan))
+        exts = np.fromiter(itertools.chain.from_iterable(b.exts
+                                                         for b in plan),
+                           EXT_DTYPE, int(lens.sum()))
+        s_exts, s_sups, s_lens = self.known.gather(prefixes)
+        s_keys = bucket_keys(s_lens, s_exts)
+        keys = bucket_keys(lens, exts)
+        pos, found = find(s_keys, keys)
+        p_dirty = np.fromiter(map(self.is_dirty, prefixes), bool, len(plan))
+        dirty_m = found & np.repeat(p_dirty, lens) & self.dirty_of(exts)
+        fresh_m = ~found
+        swept_m = dirty_m | fresh_m
+        level = _Level(prefixes, exts, lens, keys, s_keys, s_sups, s_lens,
+                       pos, found, dirty_m, fresh_m)
         dirty: List[Bucket] = []
         fresh: List[Bucket] = []
-        for b in plan:
-            p = b.prefix
-            p_dirty = all(i in ditems for i in p)
-            d_exts: List[int] = []
-            f_exts: List[int] = []
-            for e in b.exts:
-                c = p + (e,)
-                ks = known.get(c)
-                if ks is None:
-                    f_exts.append(e)
-                    swept.add(c)
-                elif p_dirty and e in ditems:
-                    d_exts.append(e)
-                    swept.add(c)
-                else:
-                    clean.append((c, ks))
-            if d_exts:
-                dirty.append(Bucket(b.key, p, tuple(d_exts)))
-            if f_exts:
-                fresh.append(Bucket(b.key, p, tuple(f_exts)))
-        return clean, dirty, fresh
+        starts = np.cumsum(lens) - lens
+        n_dirty = np.add.reduceat(dirty_m, starts, dtype=np.int64).tolist()
+        n_fresh = np.add.reduceat(fresh_m, starts, dtype=np.int64).tolist()
+        for b, a, n, nd, nf in zip(plan, starts.tolist(), lens.tolist(),
+                                   n_dirty, n_fresh):
+            if nd + nf:
+                ex = exts[a:a + n]
+                self.swept[b.prefix] = (ex if nd + nf == n
+                                        else ex[swept_m[a:a + n]])
+                if nd:
+                    dirty.append(_sub_bucket(b, ex, dirty_m[a:a + n], nd))
+                if nf:
+                    fresh.append(_sub_bucket(b, ex, fresh_m[a:a + n], nf))
+        n_clean = len(exts) - int(np.count_nonzero(swept_m))
+        return level, n_clean, dirty, fresh
+
+    def fold(self, level: "_Level",
+             swept: List[Tuple[Bucket, np.ndarray, bool]]) -> np.ndarray:
+        """Fold a level's sweeps into ``known`` and return every
+        candidate's support, laid out as ``level.exts``. ``swept`` holds
+        ``(sub-bucket, counts, fresh)`` in any order: fresh counts are
+        supports, the others deltas over the pending segments. Clean
+        candidates keep their stored supports. Under a cluster this is
+        the exchange's update and runs once per known store; every host
+        gets the supports back."""
+        counts = {(b.prefix, is_fresh): c for b, c, is_fresh in swept}
+        sups = np.zeros(len(level.exts), SUP_DTYPE)
+        sups[level.found] = level.s_sups[level.pos[level.found]]
+        for is_fresh, m in ((False, level.dirty), (True, level.fresh)):
+            parts = [counts[p, is_fresh] for p in level.prefixes
+                     if (p, is_fresh) in counts]
+            if parts:
+                got = np.concatenate(parts).astype(SUP_DTYPE)
+                sups[m] = got if is_fresh else sups[m] + got
+        # write the level back: the stored supports updated, the fresh
+        # extensions inserted in order, one new array for the level
+        new_sups = level.s_sups.copy()
+        new_sups[level.pos[level.found]] = sups[level.found]
+        new_keys, new_lens = level.s_keys, level.s_lens
+        if level.fresh.any():
+            at = level.pos[level.fresh]
+            new_keys = np.insert(new_keys, at, level.keys[level.fresh])
+            new_sups = np.insert(new_sups, at, sups[level.fresh])
+            new_lens = new_lens + np.add.reduceat(
+                level.fresh, np.cumsum(level.lens) - level.lens,
+                dtype=np.int64)
+        self.known.scatter(level.prefixes,
+                           (new_keys & 0xFFFFFFFF).astype(EXT_DTYPE),
+                           new_sups, new_lens)
+        return sups
+
+    @staticmethod
+    def threshold(level: "_Level", sups: np.ndarray, min_support: int
+                  ) -> List[Tuple[Itemset, int]]:
+        """The level's ``(itemset, support)`` pairs at ``min_support`` or
+        above, from :meth:`fold`'s supports: a tuple is built only for a
+        frequent candidate."""
+        hits = np.flatnonzero(sups >= min_support)
+        which = (level.keys[hits] >> 32).tolist()
+        pre = level.prefixes
+        return [(pre[i] + (e,), s) for i, e, s in
+                zip(which, level.exts[hits].tolist(), sups[hits].tolist())]
+
+    def mark_swept(self, prefix: Itemset, exts) -> None:
+        """Record the extensions of ``prefix`` an engine swept (a class
+        task, once per prefix; caller holds ``lock``)."""
+        self.swept[prefix] = ext_array(sorted(exts))
 
     def drop_unswept(self) -> None:
         """Drop every known candidate whose support may have changed (all
@@ -388,11 +471,50 @@ class DeltaPlan:
         segments, and a later delta sweep (pending segments only) would
         never add them, so it must be swept in full if it returns. Under
         a fixed count nothing dies, so the streams call this only under a
-        fraction threshold."""
-        stale = [x for x in self.known
-                 if len(x) >= 2 and x not in self.swept and self.is_dirty(x)]
-        for x in stale:
-            del self.known[x]
+        fraction threshold. Works on every dirty prefix's bucket at
+        once: a mask of dirty extensions, less the swept ones."""
+        known = self.known
+        prefixes = [p for p in known.prefixes() if p and self.is_dirty(p)]
+        exts, _, lens = known.gather(prefixes)
+        none = np.zeros(0, EXT_DTYPE)
+        swept = [self.swept.get(p, none) for p in prefixes]
+        sw_lens = np.fromiter(map(len, swept), np.int64, len(swept))
+        sw = np.concatenate(swept) if swept else none
+        _, was_swept = find(bucket_keys(sw_lens, sw),
+                            bucket_keys(lens, exts))
+        stale = self.dirty_of(exts) & ~was_swept
+        ends = np.cumsum(lens).tolist()
+        for p, a, z in zip(prefixes, [0] + ends[:-1], ends):
+            known.drop(p, stale[a:z])
+
+
+class _Level(NamedTuple):
+    """One level's planned buckets aligned with the known store
+    (``DeltaPlan.classify_buckets``): the candidates' extensions laid
+    end to end, bucket by bucket, with their sort keys; the planned
+    prefixes' stored entries in the same layout; each candidate's slot
+    among them, and whether it is stored (``found``), dirty or
+    fresh."""
+    prefixes: List[Itemset]
+    exts: np.ndarray
+    lens: np.ndarray
+    keys: np.ndarray
+    s_keys: np.ndarray
+    s_sups: np.ndarray
+    s_lens: np.ndarray
+    pos: np.ndarray
+    found: np.ndarray
+    dirty: np.ndarray
+    fresh: np.ndarray
+
+
+def _sub_bucket(b: Bucket, exts: np.ndarray, mask: np.ndarray,
+                n: int) -> Bucket:
+    """The ``n`` extensions of bucket ``b`` (``exts``) that ``mask``
+    selects (``b`` itself when that is all of them)."""
+    if n == len(exts):
+        return b
+    return Bucket(b.key, b.prefix, tuple(exts[mask].tolist()))
 
 
 class EngineRuntime:
@@ -763,15 +885,18 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
     work, and diffset handoffs are disabled mid-refresh anyway.
 
     Under a ``cluster`` every host plans the same global frontier, sweeps
-    only the prefixes it owns and merges the level's counted pairs in an
-    exchange, so every host thresholds identically; a delta plan's
-    known-store update runs once per store inside that exchange.
+    only the prefixes it owns and merges the level's counts in an
+    exchange, so every host thresholds identically: the counted pairs,
+    or under a delta plan each swept bucket's counts, whose fold into the
+    known store runs once per store inside that exchange.
 
     The level stays bucket-shaped from planning to thresholding
-    (``gen_buckets``). Without a delta plan or a cluster the collectors
-    threshold as they collect, a bucket's counts at once, so an itemset
-    tuple is built only for a frequent candidate; the exchange and the
-    delta fold-in need every candidate's support, and keep every pair."""
+    (``gen_buckets``), and an itemset tuple is built only for a frequent
+    candidate: without a delta plan or a cluster the collectors threshold
+    a bucket's counts at once; a delta plan classifies, folds and
+    thresholds each bucket by masks over its arrays in the known store
+    (``DeltaPlan``, ``core/known.py``). Only the cluster exchange of a
+    batch mine needs every candidate's pair."""
     n_w = store.n_words
     # cached prefix rows must cover every segment the plan sweeps; max+1
     # because a tenant's segment set is a non-contiguous subset
@@ -903,15 +1028,12 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
                 keep.append(b)
         return keep
 
-    def _spawn_sweeps(plan: List[Bucket], segments, floor: int = 0):
+    def _spawn_sweeps(plan: List[Bucket], segments):
         """Spawn sweeps for the ``plan``'s buckets (bucket- or candidate-
-        grained) and return ``(collect, counted)``: a collector to call
+        grained) and return ``(swept, collect)``: the buckets swept (a
+        cluster host's own, less any detached) and a collector to call
         AFTER ``wait_all`` — fresh and dirty sweep sets share one level
-        barrier — and the number of candidates it counts. The collector
-        returns the ``(itemset, support)`` pairs with support at
-        ``floor`` or above (every pair at 0); at bucket grain it
-        thresholds a bucket's counts at once, so no tuple is built for a
-        candidate below the floor."""
+        barrier — that returns each swept bucket's [E] counts."""
         if cluster is not None:
             # every host plans the same global frontier but sweeps only
             # the prefixes it owns; the level exchange merges the pairs
@@ -928,14 +1050,7 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
 
             def collect():
                 _raise_task_errors(tasks)
-                out = []
-                for b, t in zip(plan, tasks):
-                    counts = t.result
-                    hits = np.flatnonzero(counts >= floor)
-                    p, exts = b.prefix, b.exts
-                    out.extend((p + (exts[i],), s) for i, s in
-                               zip(hits.tolist(), counts[hits].tolist()))
-                return out
+                return [t.result for t in tasks]
         else:
             # candidate grain: the buckets flattened in order are the
             # sequence ``gen_candidates`` gives
@@ -948,38 +1063,50 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
 
             def collect():
                 _raise_task_errors(tasks)
-                return [(c, int(t.result))
-                        for (_, c), t in zip(cands, tasks)
-                        if t.result >= floor]
-        return collect, sum(len(b.exts) for b in plan)
+                if not plan:
+                    return []
+                counts = np.fromiter((t.result for t in tasks), np.int64,
+                                     len(tasks))
+                return np.split(counts,
+                                np.cumsum([len(b.exts) for b in plan])[:-1])
+        return plan, collect
 
-    def delta_chunk_task(chunk: List[Bucket]) -> List[Tuple[Itemset, int]]:
+    def _threshold(plan: List[Bucket], counts, floor: int):
+        """The ``(itemset, support)`` pairs with support at ``floor`` or
+        above (every pair at 0), a bucket's counts at once: no tuple is
+        built for a candidate below the floor."""
+        out = []
+        for b, c in zip(plan, counts):
+            hits = np.flatnonzero(c >= floor)
+            p, exts = b.prefix, b.exts
+            out.extend((p + (exts[i],), s) for i, s in
+                       zip(hits.tolist(), c[hits].tolist()))
+        return out
+
+    def delta_chunk_task(chunk: List[Bucket]) -> List[np.ndarray]:
         """Coalesced dirty-candidate burst: each bucket in the chunk
         becomes ONE tuple-prefix sweep over the pending segments, and
         the whole chunk executes as one burst — on this worker thread
         for the host backend, as dispatcher flushes for the kernel
-        backend. No prefix bitmap is ever built on the host."""
+        backend. No prefix bitmap is ever built on the host. Returns
+        each bucket's [E] delta counts."""
         st = sched.worker_stats()
-        counts_per_bucket = dispatchers[sched.worker_device()].sweep_local(
+        counts = dispatchers[sched.worker_device()].sweep_local(
             [((b.prefix if len(b.prefix) > 1 else b.prefix[0]), b.exts)
              for b in chunk],
             segments=delta.segments)
         st.sweeps_submitted += len(chunk)
-        out: List[Tuple[Itemset, int]] = []
-        rows = 0
-        for b, counts in zip(chunk, counts_per_bucket):
-            rows += len(b.prefix) + len(b.exts)
-            out.extend((b.prefix + (e,), int(s))
-                       for e, s in zip(b.exts, counts))
+        rows = sum(len(b.prefix) + len(b.exts) for b in chunk)
         st.rows_touched += rows
         st.bytes_swept += rows_to_bytes(rows, _seg_w(delta.segments))
-        return out
+        return counts
 
     def _spawn_delta_chunks(plan: List[Bucket]):
         """Spawn a handful of chunk tasks (≈4 per worker) over the
         classified dirty buckets instead of one task per bucket:
         per-task scheduler and future overhead would otherwise cost more
-        than the few-word sweeps themselves."""
+        than the few-word sweeps themselves. The collector returns each
+        bucket's [E] delta counts."""
         if not plan:
             return lambda: []
         metrics.buckets += len(plan)
@@ -992,7 +1119,7 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
 
         def collect():
             _raise_task_errors(tasks)
-            return [pair for t in tasks for pair in t.result]
+            return [c for t in tasks for c in t.result]
         return collect
 
     k = 2
@@ -1019,15 +1146,16 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
         metrics.candidates += n_cands
         frequent = []
         level: List[Tuple[Itemset, int]] = []
-        # the collectors threshold the level themselves unless the
-        # cluster exchange or the delta fold-in needs every pair
-        floor = min_support if delta is None and cluster is None else 0
         if delta is None:
-            collect, counted = _spawn_sweeps(plan, None, floor)
+            # the collectors threshold the level themselves unless the
+            # cluster exchange needs every pair
+            floor = min_support if cluster is None else 0
+            swept, collect = _spawn_sweeps(plan, None)
             if tr is not None:
                 tr.span("plan", t_plan, cat=HOST_CAT,
                         args={"candidates": n_cands,
-                              "buckets": metrics.buckets - buckets0})
+                              "buckets": metrics.buckets - buckets0,
+                              "tuples": len(level)})
             if cluster is None:
                 sched.wait_all()
             else:
@@ -1036,63 +1164,56 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
             if df_miner is not None:
                 _raise_task_errors(detached_tasks)
                 df_miner.raise_errors()
-            level = collect()
+            level = _threshold(swept, collect(), floor)
             built = len(level)
-            if cluster is not None:
+            if cluster is None:
+                counted = sum(len(b.exts) for b in swept)
+            else:
                 level = cluster.exchange(level)
+                counted = len(level)
         else:
-            clean, dirty, fresh = delta.classify_buckets(plan)
-            level.extend(clean)                 # clean: zero rows read
+            # classify by masks, sweep the dirty and fresh sub-buckets,
+            # fold their counts into the known store a bucket at a time
+            # and threshold every bucket from it: a tuple is built only
+            # for a frequent candidate
+            classified, n_clean, dirty, fresh = delta.classify_buckets(plan)
             n_dirty = sum(len(b.exts) for b in dirty)
             n_fresh = sum(len(b.exts) for b in fresh)
             if cluster is None or cluster.host_id == 0:
                 # loopback hosts share the plan: bill its avoided-work
                 # counters once, not once per host
-                delta.reused += len(clean)
+                delta.reused += n_clean
                 delta.swept_full += n_fresh
                 delta.swept_delta += n_dirty
             if cluster is not None:
                 dirty = [b for b in dirty if cluster.owns(b.prefix)]
-            collect_fresh, _ = _spawn_sweeps(fresh, delta.base_segments)
+            fresh, collect_fresh = _spawn_sweeps(fresh, delta.base_segments)
             collect_dirty = _spawn_delta_chunks(dirty)
             if tr is not None:
                 tr.span("plan", t_plan, cat=HOST_CAT,
                         args={"candidates": n_cands,
                               "buckets": metrics.buckets - buckets0,
-                              "clean": len(clean), "dirty": n_dirty,
-                              "fresh": n_fresh})
+                              "clean": n_clean, "dirty": n_dirty,
+                              "fresh": n_fresh, "tuples": len(level)})
             if cluster is None:
                 sched.wait_all()
-                t_collect = tr.now() if tr is not None else 0.0
-                fresh_pairs, dirty_pairs = collect_fresh(), collect_dirty()
-                built = len(fresh_pairs) + len(dirty_pairs)
-                for c, s in fresh_pairs:
-                    delta.known[c] = s
-                    level.append((c, s))
-                for c, d in dirty_pairs:
-                    s = delta.known[c] + d      # delta over pending segs
-                    delta.known[c] = s
-                    level.append((c, s))
             else:
                 cluster.level_wait(sched)
-                t_collect = tr.now() if tr is not None else 0.0
-                mined = ([(c, s, True) for c, s in collect_fresh()]
-                         + [(c, d, False) for c, d in collect_dirty()])
-                built = len(mined)
-
-                def _apply(merged):
-                    # runs once per known store (host 0 under loopback,
-                    # where the hosts share the plan): fold fresh supports
-                    # and dirty deltas into ``known`` and return the
-                    # globally thresholdable (itemset, support) pairs
-                    out = []
-                    for c, v, is_fresh in merged:
-                        s = v if is_fresh else delta.known[c] + v
-                        delta.known[c] = s
-                        out.append((c, s))
-                    return out
-
-                level.extend(cluster.exchange(mined, update=_apply))
+            t_collect = tr.now() if tr is not None else 0.0
+            counts = ([(b, c, True) for b, c in zip(fresh, collect_fresh())]
+                      + [(b, c, False)
+                         for b, c in zip(dirty, collect_dirty())])
+            if cluster is None:
+                sups = delta.fold(classified, counts)
+            else:
+                # the fold runs once per known store (host 0 under
+                # loopback, where the hosts share the plan), and every
+                # host gets the level's supports back
+                sups = cluster.exchange(
+                    counts, update=lambda got: delta.fold(classified, got))
+            level = delta.threshold(classified, sups, min_support)
+            built = len(level)
+            counted = n_cands
         for c, s in level:
             if s >= min_support:
                 result[c] = s
@@ -1104,7 +1225,7 @@ def _mine_levelwise(store, dispatchers, min_support, max_k, sched,
             # ``tuples``: the (itemset, support) pairs the collectors
             # built (with a floor, the frequent ones only)
             tr.span("collect", t_collect, cat=HOST_CAT,
-                    args={"candidates": counted if floor else len(level),
+                    args={"candidates": counted,
                           "frequent": len(frequent), "tuples": built})
             # driver-lane level span: the barrier-to-barrier extent
             tr.span(f"level-{k}", t_level, cat="level",
@@ -1334,7 +1455,7 @@ class _ClassMiner:
                         supports.append((e, s))
                 with delta.lock:
                     delta.known.update(updates)
-                    delta.swept.update(updates)
+                    delta.mark_swept(prefix, fresh_e + dirty_e)
                     delta.swept_full += len(fresh_e)
                     delta.swept_delta += len(dirty_e)
                     delta.reused += n_clean

@@ -68,6 +68,7 @@ from repro_torch.core.fpm import (HOST_CAT, DeltaPlan, EngineRuntime,
                                   mine_more)
 from repro_torch.core.itemsets import Itemset
 from repro_torch.core.join_backend import FLUSH_US, MAX_BATCH
+from repro_torch.core.known import BorderView, KnownStore
 from repro_torch.core.scheduler import ClusteredPolicy
 from repro_torch.core.tidlist import (BitmapArena, pack_database,
                                       resolve_device)
@@ -169,7 +170,9 @@ class PatternSnapshot:
     its exact support over the ``n_transactions`` the generation covers;
     ``border`` maps the NEGATIVE border — candidates the engines counted
     whose support landed below ``min_support`` — to those exact
-    sub-threshold supports (:meth:`lookup` flags them infrequent). The
+    sub-threshold supports (:meth:`lookup` flags them infrequent); a
+    refresh publishes it as a read-only view over its known store's
+    arrays (``BorderView``), kept as it is. The
     ranking index for ``top_k`` is built on the first ranked query, and
     ranks on ``device`` (None = the CUDA card) once it is large enough
     (``TOPK_DEVICE_MIN``). A racing build is benign: both threads build
@@ -184,8 +187,9 @@ class PatternSnapshot:
     def __post_init__(self):
         object.__setattr__(self, "supports",
                            MappingProxyType(dict(self.supports)))
-        object.__setattr__(self, "border",
-                           MappingProxyType(dict(self.border)))
+        if not isinstance(self.border, BorderView):
+            object.__setattr__(self, "border",
+                               MappingProxyType(dict(self.border)))
         object.__setattr__(self, "_index_cache", None)
 
     @property
@@ -251,7 +255,7 @@ class QueryPlanner:
     exactly a candidate sweep's shape, so query and candidate requests
     coalesce into the same flushes."""
 
-    def __init__(self, snapshot: PatternSnapshot, known: Dict[Itemset, int],
+    def __init__(self, snapshot: PatternSnapshot, known: KnownStore,
                  item_support: np.ndarray, segments: Sequence[int]):
         self.snapshot = snapshot
         self.known = known
@@ -491,6 +495,33 @@ def _check_items(db, n_items: int) -> None:
 # the streaming miner
 # ---------------------------------------------------------------------------
 
+def _assemble(owner, known: KnownStore, singles: Dict[Itemset, int],
+              ms: int, n_transactions: int, tr
+              ) -> Tuple[PatternSnapshot, int]:
+    """The generation a refresh of ``owner`` publishes, assembled exactly
+    from the known store: skipped (clean) subtrees never touched the
+    run's result, but their supports are in the store, and downward
+    closure makes the filter exact. The sub-threshold remainder IS the
+    negative border, published as a view over the store's arrays.
+    Returns the snapshot and how many of its itemsets the previous
+    generation held; traced as an ``assemble`` span, whose ``tuples``
+    counts the itemsets materialised (the border's are built on
+    read)."""
+    t_asm = tr.now() if tr is not None else 0.0
+    final = dict(singles)
+    found, border = known.split(ms, owner.max_k)
+    final.update(found)
+    prev = owner._snapshot.supports
+    stayed = sum(1 for x in final if x in prev)
+    snapshot = PatternSnapshot(owner.generation + 1, n_transactions, ms,
+                               final, border=border, device=owner.device)
+    if tr is not None:
+        tr.span("assemble", t_asm, cat=HOST_CAT,
+                args={"frequent": len(final), "border": len(border),
+                      "tuples": len(final)})
+    return snapshot, stayed
+
+
 def _drop_unswept(plan: DeltaPlan, tr) -> None:
     """``plan.drop_unswept()``, traced as a ``drop-unswept`` span on the
     refreshing thread's lane."""
@@ -625,7 +656,7 @@ class StreamingMiner:
         # support of every candidate ever swept (|X| >= 2; frequent AND
         # negative border), exact over the refreshed segments — the
         # reuse store that lets clean classes skip their sweeps
-        self._known: Dict[Itemset, int] = {}
+        self._known = KnownStore()
         # known entries written by query backfills (not by mining): the
         # delta plan only revisits the candidate frontier, so at refresh
         # the dirty ones among these are dropped rather than go stale
@@ -726,7 +757,7 @@ class StreamingMiner:
         return QueryPlanner(self._snapshot, self._known, self._item_support,
                             range(self._refreshed_segments))
 
-    def _commit_answers(self, known_ref: Dict[Itemset, int],
+    def _commit_answers(self, known_ref: KnownStore,
                         updates: Dict[Itemset, int]) -> None:
         with self._state:
             # a refresh may have published a NEW known store while the
@@ -829,7 +860,8 @@ class StreamingMiner:
                 # all-or-nothing: mine against WORKING copies and commit
                 # only at publish, so a failed refresh leaves the miner's
                 # state untouched and a retry cannot double-add deltas
-                known = dict(self._known)
+                # (the store's copy shares its arrays, never written)
+                known = self._known.copy()
                 qk = set(self._query_known)
             base_segments = tuple(range(boundary))
             t_dirty = tr.now() if tr is not None else 0.0
@@ -854,7 +886,6 @@ class StreamingMiner:
                 qk.discard(x)
             item_support = self._item_support + deltas
             ms = self._resolve_ms(boundary_tx)
-            prev = self._snapshot.supports
 
             def hotness(prefix: Itemset) -> float:
                 """Staleness priority of a re-mine task: the stale
@@ -892,39 +923,16 @@ class StreamingMiner:
                 metrics.d2d_bytes = arena.d2d_bytes - d2d0
             if isinstance(self._ms_spec, float):
                 _drop_unswept(plan, tr)
-
-            # exact assembly from the reuse store: skipped (clean)
-            # subtrees never touched `result`, but their supports are in
-            # the known store, and downward closure makes the filter
-            # exact. The sub-threshold remainder IS the negative border.
-            t_asm = tr.now() if tr is not None else 0.0
-            final = dict(singles)
-            border: Dict[Itemset, int] = {}
-            for x, s in known.items():
-                if len(x) <= self.max_k:
-                    if s >= ms:
-                        final[x] = s
-                    else:
-                        border[x] = s
-            stayed = born = 0
-            for x in final:
-                if x in prev:
-                    stayed += 1
-                else:
-                    born += 1
-            died = len(prev) - stayed
-            snapshot = PatternSnapshot(self.generation + 1, boundary_tx, ms,
-                                       final, border=border,
-                                       device=self.device)
-            if tr is not None:
-                tr.span("assemble", t_asm, cat=HOST_CAT,
-                        args={"frequent": len(final),
-                              "border": len(border)})
+            snapshot, stayed = _assemble(self, known, singles, ms,
+                                         boundary_tx, tr)
+            n_final = len(snapshot.supports)
             report = RefreshReport(
                 generation=snapshot.generation, n_transactions=boundary_tx,
-                min_support=ms, frequent=len(final),
+                min_support=ms, frequent=n_final,
                 segments_refreshed=pending, dirty_items=len(dirty),
-                stayed=stayed, born=born, died=died, reused=plan.reused,
+                stayed=stayed, born=n_final - stayed,
+                died=len(self._snapshot.supports) - stayed,
+                reused=plan.reused,
                 swept_delta=plan.swept_delta, swept_full=plan.swept_full,
                 rows_touched=metrics.rows_touched,
                 bytes_swept=metrics.bytes_swept,
@@ -954,7 +962,7 @@ class StreamingMiner:
                 tr.span("refresh", t0, cat="stream",
                         args={"generation": snapshot.generation,
                               "segments": len(pending),
-                              "frequent": len(final)})
+                              "frequent": n_final})
                 tr.counter("refresh_lag", {"s": self.refresh_lag})
             return report
 
@@ -1143,7 +1151,7 @@ class Tenant:
         self._pending: List[int] = []    # ingested, not yet refreshed
         self._seg_tx: Dict[int, int] = {}
         self._item_support = np.zeros(hub.n_items, np.int64)
-        self._known: Dict[Itemset, int] = {}
+        self._known = KnownStore()
         self._query_known: Set[Itemset] = set()
         self._refresh_lock = threading.Lock()
         self._snapshot = PatternSnapshot(0, 0, self._resolve_ms(0), {},
@@ -1252,7 +1260,7 @@ class Tenant:
                 pending = tuple(self._pending)
                 base_segments = tuple(self._segments) + pending
                 boundary_tx = sum(self._seg_tx[g] for g in base_segments)
-                known = dict(self._known)
+                known = self._known.copy()
                 qk = set(self._query_known)
             t_dirty = tr.now() if tr is not None else 0.0
             deltas = np.zeros(self.n_items, np.int64)
@@ -1268,7 +1276,6 @@ class Tenant:
                 qk.discard(x)
             item_support = self._item_support + deltas
             ms = self._resolve_ms(boundary_tx)
-            prev = self._snapshot.supports
 
             def hotness(prefix: Itemset) -> float:
                 if len(prefix) == 1:
@@ -1296,29 +1303,16 @@ class Tenant:
             metrics.d2d_bytes = arena.d2d_bytes - d2d0
             if isinstance(self._ms_spec, float):
                 _drop_unswept(plan, tr)
-            t_asm = tr.now() if tr is not None else 0.0
-            final = dict(singles)
-            border: Dict[Itemset, int] = {}
-            for x, s in known.items():
-                if len(x) <= self.max_k:
-                    if s >= ms:
-                        final[x] = s
-                    else:
-                        border[x] = s
-            stayed = sum(1 for x in final if x in prev)
-            snapshot = PatternSnapshot(self.generation + 1, boundary_tx, ms,
-                                       final, border=border,
-                                       device=self.device)
-            if tr is not None:
-                tr.span("assemble", t_asm, cat=HOST_CAT,
-                        args={"frequent": len(final),
-                              "border": len(border)})
+            snapshot, stayed = _assemble(self, known, singles, ms,
+                                         boundary_tx, tr)
+            n_final = len(snapshot.supports)
             report = RefreshReport(
                 generation=snapshot.generation, n_transactions=boundary_tx,
-                min_support=ms, frequent=len(final),
+                min_support=ms, frequent=n_final,
                 segments_refreshed=pending, dirty_items=len(dirty),
-                stayed=stayed, born=len(final) - stayed,
-                died=len(prev) - stayed, reused=plan.reused,
+                stayed=stayed, born=n_final - stayed,
+                died=len(self._snapshot.supports) - stayed,
+                reused=plan.reused,
                 swept_delta=plan.swept_delta, swept_full=plan.swept_full,
                 rows_touched=metrics.rows_touched,
                 bytes_swept=metrics.bytes_swept,

@@ -574,3 +574,45 @@ def test_traced_refresh_records_its_delta_bookkeeping(host):
     flush_ids = {e.args["flush"] for e in evs if e.name == "flush"}
     assert {e.args["flush"] for e in sweeps} <= flush_ids
     assert check_nesting(evs) == []
+
+
+def test_traced_stream_refresh_builds_tuples_for_published_itemsets_only():
+    """A fraction-threshold refresh at bucket grain classifies, folds and
+    thresholds each level by masks over the known store's arrays: level
+    2's ``collect`` builds a tuple per frequent candidate only, ``plan``
+    builds none, and ``assemble`` materialises just the itemsets the
+    snapshot publishes (the border stays a view)."""
+    rows = _stream_rows(400)
+    tr = Tracer()
+    sm = tstreaming.StreamingMiner(16, 0.1, initial_db=rows[:300],
+                                   device="cpu", backend="torch",
+                                   n_workers=3, max_k=4, tracer=tr,
+                                   granularity="bucket")
+    snaps = []
+    try:
+        for batch in (None, rows[300:350], rows[350:]):
+            if batch is not None:
+                sm.ingest(batch)
+            rep = sm.refresh()
+            snaps.append(sm.snapshot)
+    finally:
+        sm.close()
+    assert rep.swept_delta > 0
+    driver = [e for e in tr.events() if e.lane == "driver" and e.ph == "X"]
+    level2 = [e for e in driver if e.name == "level-2"]
+    assert len(level2) == 3
+    collects = [next(e for e in driver if e.name == "collect"
+                     and _inside(e, lv)) for lv in level2]
+    plans = [next(e for e in driver if e.name == "plan" and _inside(e, lv))
+             for lv in level2]
+    for c in collects:
+        assert c.args["tuples"] == c.args["frequent"]
+    # the mechanism is visible: level 2 counted more than it kept
+    assert all(c.args["candidates"] > c.args["tuples"] for c in collects)
+    assert sum(p.args["dirty"] for p in plans) > 0
+    assert all(e.args["tuples"] == 0 for e in driver if e.name == "plan")
+    assembles = [e for e in driver if e.name == "assemble"]
+    assert [e.args["tuples"] for e in assembles] == [
+        len(s.supports) for s in snaps]
+    assert [e.args["border"] for e in assembles] == [
+        len(s.border) for s in snaps]
